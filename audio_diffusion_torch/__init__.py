@@ -1,0 +1,20 @@
+"""audio_diffusion_torch — the PyTorch/CUDA port of audio_diffusion_tpu.
+
+Runs the unconditional 256x256 latent generation path on an NVIDIA H100:
+mel DSP, DDIM, the UNet and KL-VAE, and the generation pipeline, with
+hand-written CUDA kernels (``csrc/``) for fused GroupNorm+SiLU and
+many-small-heads attention. Imports torch and numpy, never JAX.
+"""
+
+VERSION = "0.1.0"
+__version__ = VERSION
+
+from .mel import Mel, MelConfig  # noqa: F401,E402
+
+
+def __getattr__(name):
+    if name == "AudioDiffusionPipeline":
+        from .pipelines.pipeline import AudioDiffusionPipeline
+
+        return AudioDiffusionPipeline
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

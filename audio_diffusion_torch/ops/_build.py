@@ -1,0 +1,111 @@
+"""Build the package's CUDA kernels with ``nvcc`` and load them with ctypes.
+
+Every ``csrc/*.cu`` file is compiled at first use into ONE shared library with
+a plain C interface (no PyTorch headers, which would add minutes to a build):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
+
+The library is named after a hash of the sources and flags, so an edit to a
+kernel rebuilds it, and lives in ``audio_diffusion_torch/_build/`` (listed in
+``.gitignore``). Each C entry point launches on the stream it is given and
+returns ``cudaGetLastError()``; :func:`check` turns a non-zero code into an
+exception. Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from functools import lru_cache
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# Entry point -> argtypes. Every pointer and the stream are c_void_p, or
+# ctypes would pass them as 32-bit ints.
+SIGNATURES = {
+    # x, partials, is_bf16, B*G, slab, splits, stream
+    "adt_group_norm_stats": (_P, _P, _I, _LL, _I, _I, _P),
+    # x, partials, scale, bias, y, is_bf16, B*G, groups, cs, H*W, splits, eps, stream
+    "adt_group_norm_silu_apply": (_P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _F, _P),
+    # q, k, v, o, is_bf16, B*heads, N, d, scale, stream
+    "adt_mha_fwd": (_P, _P, _P, _P, _I, _LL, _I, _I, _F, _P),
+}
+
+
+def _sources() -> list:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME to build the CUDA kernels")
+    return path
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libadt_kernels_{h.hexdigest()[:16]}.so"
+
+
+@lru_cache(maxsize=1)
+def load() -> "KernelLibrary":
+    """Build (if needed) and load the kernel library. Raises on any failure."""
+    return KernelLibrary()
+
+
+class KernelLibrary:
+    """The loaded ``.so`` with typed entry points; ``build_seconds`` is 0.0
+    when an up-to-date library was already on disk, and ``build_log`` holds
+    nvcc's output (``-Xptxas -v``: registers, shared memory, spills)."""
+
+    def __init__(self):
+        path = library_path()
+        self.build_seconds = 0.0
+        self.build_log = ""
+        if not path.exists():
+            self.build_seconds, self.build_log = _compile(path)
+        self.path = path
+        self._lib = ctypes.CDLL(str(path))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(self._lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+            setattr(self, name, fn)
+
+
+def _compile(path: Path):
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+    os.replace(tmp, path)  # atomic: a concurrent build never loads a partial file
+    path.with_suffix(".log").write_text(log)
+    return seconds, log
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error for its launch."""
+    if code != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {code}")

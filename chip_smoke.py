@@ -1,0 +1,464 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path once on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py
+
+Phases, one line each (plus detail lines):
+  1. build   the CUDA kernels from ``audio_diffusion_torch/csrc`` with nvcc
+  2. gn      GroupNorm+SiLU kernels vs their plain PyTorch version at every
+             (C, H, W) the latent-256 UNet gives them, f32 and bf16, eps
+             1e-5 and 1e-6, batch 1 and 32
+  3. attn    attention kernel vs plain at h=64, d=8, N in {1,4,16,256,1024}
+  4. main    the full-width latent-256 pipeline (bf16, fused GroupNorm,
+             seeded random weights) answers batch-1, -8 and -32 requests of
+             50 DDIM steps through ``AudioDiffusionPipeline.__call__``; the
+             kernels' launch counters must show the path went through them
+  5. fidelity  Griffin-Lim round trip and bf16-vs-f32 VAE round trip gates
+Then one JSON line with each kernel's launches, error and times, the card's
+name and power limit as nvidia-smi prints them, and as the last line
+``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
+without a CUDA device it exits non-zero at once and prints no result.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent
+STEPS = 50
+REQUESTS = ((1, 101), (8, 102), (32, 103))  # (batch, generator seed)
+GL_BOUND = 2.41 + 1.1  # bench.py:212-214, 256x256 hop 512
+VAE_BOUND = 2.0  # bench.py:231-232, uint8 MAE
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAIL: {msg}")
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_time_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn()`` over ``reps`` runs, after one warm-up run."""
+    import torch
+
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bf16_ulp(y):
+    import torch
+
+    _, e = torch.frexp(y.abs().clamp(min=torch.finfo(torch.float32).tiny))
+    return torch.ldexp(torch.ones_like(y), e - 8)  # bf16 keeps 8 significant bits
+
+
+# ---------------------------------------------------------------------- phases
+
+def phase_build():
+    from audio_diffusion_torch.ops import _build
+
+    t0 = time.perf_counter()
+    lib = _build.load()
+    wall = time.perf_counter() - t0
+    print(f"[build] ok: nvcc {lib.build_seconds:.2f} s (load {wall:.2f} s) -> {lib.path.relative_to(REPO)}")
+    entry = None
+    for line in lib.build_log.splitlines():  # -Xptxas -v: one "Used N registers" line per kernel
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else line
+        elif "Used" in line and entry:
+            print(f"  ptxas {entry[:60]}: {line.split(':', 1)[-1].strip()}")
+    return lib
+
+
+def slice_norm_shapes(cfg):
+    """(C, H, W) of the 64 fused GroupNorm calls of one UNet forward, in order,
+    recorded by hooks on a batch-1 forward on the CPU (plain path)."""
+    import torch
+
+    from audio_diffusion_torch.models.unet2d import ResnetBlock2D, UNet2D
+
+    unet = UNet2D(cfg)
+    calls = []
+
+    def hook(mod, args):
+        x = args[0]
+        _, c, h, w = x.shape
+        calls.append((c, h, w))
+        calls.append((mod.norm2.num_channels, h, w))
+
+    for m in unet.modules():
+        if isinstance(m, ResnetBlock2D):
+            m.register_forward_pre_hook(hook)
+    h, w = cfg.sample_hw()
+    with torch.inference_mode():
+        unet(torch.zeros(1, h, w, cfg.in_channels), torch.zeros(1, dtype=torch.long))
+    return calls
+
+
+def phase_groupnorm(cfg, card: str):
+    import torch
+
+    from audio_diffusion_torch.ops import fused_groupnorm as gn
+
+    calls = slice_norm_shapes(cfg)
+    if len(calls) != 64:
+        fail(f"expected 64 GroupNorm calls per UNet forward, recorded {len(calls)}")
+    shapes = sorted(set(calls))
+    groups = cfg.norm_num_groups
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    err = {"stats": 0.0, "apply": 0.0, "apply_bf16_ulps": 0.0}
+    n = 0
+    for (c, h, w) in shapes:
+        for b in (1, 32):
+            for dtype in (torch.float32, torch.bfloat16):
+                for eps in (1e-5, 1e-6):
+                    x = (torch.randn((b, c, h, w), generator=gen, device="cuda") * 3 + 1).to(dtype)
+                    scale = torch.randn(c, generator=gen, device="cuda")
+                    bias = torch.randn(c, generator=gen, device="cuda")
+                    partials = gn.group_norm_stats(x, groups)
+                    y = gn.group_norm_silu_apply(x, partials, scale, bias, groups, eps)
+                    torch.cuda.synchronize()
+                    sums = gn.group_norm_stats_plain(x, groups)
+                    ref = gn.group_norm_silu_plain(x.float(), scale, bias, groups, eps)
+                    s_err = (partials.sum(1) - sums).abs().max().item()
+                    s_tol = 1e-5 * sums.abs().max().item() + 1e-4
+                    if not s_err <= s_tol:
+                        fail(f"gn stats C={c} H={h} W={w} B={b} {dtype}: err {s_err} > {s_tol}")
+                    d = (y.float() - ref).abs()
+                    tol = 1e-5 * ref.abs().max().item()
+                    if dtype == torch.float32:
+                        if not d.max().item() <= tol:
+                            fail(f"gn apply C={c} H={h} W={w} B={b} f32 eps={eps}: err {d.max().item()} > {tol}")
+                        err["apply"] = max(err["apply"], d.max().item())
+                        err["stats"] = max(err["stats"], s_err)
+                    else:
+                        # one bf16 ulp of the f32 result, plus the f32 tolerance for values near 0
+                        ulps = (d / (bf16_ulp(ref) + tol)).max().item()
+                        if not ulps <= 1.0:
+                            fail(f"gn apply C={c} H={h} W={w} B={b} bf16 eps={eps}: {ulps:.3f} ulp > 1")
+                        err["apply_bf16_ulps"] = max(err["apply_bf16_ulps"], ulps)
+                    n += 1
+    print(f"[gn] ok: {n} checks over {len(shapes)} (C,H,W) shapes; f32 max err stats {err['stats']:.3g}, "
+          f"apply {err['apply']:.3g}; bf16 max {err['apply_bf16_ulps']:.3f} ulp")
+
+    # Time: the 64 calls of one UNet forward at batch 32, bf16 (eps 1e-5).
+    xs = [torch.randn((32, c, h, w), generator=gen, device="cuda").to(torch.bfloat16) for (c, h, w) in calls]
+    ps = [torch.randn(c, generator=gen, device="cuda") for (c, _, _) in calls]
+    parts = [gn.group_norm_stats(x, groups) for x in xs]
+    sums = [p.sum(1) for p in parts]
+    t = {
+        "stats": cuda_time_ms(lambda: [gn.group_norm_stats(x, groups) for x in xs], 20),
+        "stats_plain": cuda_time_ms(lambda: [gn.group_norm_stats_plain(x, groups) for x in xs], 20),
+        "apply": cuda_time_ms(lambda: [gn.group_norm_silu_apply(x, p, s, s, groups, 1e-5)
+                                       for x, p, s in zip(xs, parts, ps)], 20),
+        "apply_plain": cuda_time_ms(lambda: [gn.group_norm_silu_apply_plain(x, q, s, s, groups, 1e-5)
+                                             for x, q, s in zip(xs, sums, ps)], 20),
+        "fused": cuda_time_ms(lambda: [gn.fused_group_norm_silu(x, s, s, groups, 1e-5) for x, s in zip(xs, ps)], 20),
+        "fused_plain": cuda_time_ms(lambda: [gn.group_norm_silu_plain(x, s, s, groups, 1e-5)
+                                             for x, s in zip(xs, ps)], 20),
+        "torch_native": cuda_time_ms(lambda: [torch.nn.functional.silu(torch.nn.functional.group_norm(
+            x.float(), groups, s, s, 1e-5)).to(x.dtype) for x, s in zip(xs, ps)], 20),
+    }
+    print("[gn] time per UNet forward (64 calls, batch 32, bf16), ms: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in t.items()) + f"  [{card}]")
+    per_shape = []
+    for (c, h, w) in shapes:
+        x = torch.randn((32, c, h, w), generator=gen, device="cuda").to(torch.bfloat16)
+        s = torch.randn(c, generator=gen, device="cuda")
+        k = cuda_time_ms(lambda: gn.fused_group_norm_silu(x, s, s, groups, 1e-5), 50)
+        p = cuda_time_ms(lambda: gn.group_norm_silu_plain(x, s, s, groups, 1e-5), 50)
+        per_shape.append((c, h, w, calls.count((c, h, w)), k, p))
+    print("[gn] per shape (C,H,W,calls,kernel_ms,plain_ms) b32 bf16: "
+          + "; ".join(f"{c},{h},{w},{m},{k:.4f},{p:.4f}" for c, h, w, m, k, p in per_shape) + f"  [{card}]")
+    return err, t
+
+
+def phase_attention(card: str):
+    import torch
+
+    from audio_diffusion_torch.ops import attention as at
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    h, d = 64, 8
+    err = {"f32": 0.0, "bf16": 0.0}
+    times = {}
+    for n in (1, 4, 16, 256, 1024):
+        for b in (1, 32):
+            for dtype, atol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+                q, k, v = (torch.randn((b, h, n, d), generator=gen, device="cuda").to(dtype) for _ in range(3))
+                o = at.flash_mha(q, k, v)
+                torch.cuda.synchronize()
+                ref = at.attention_plain(q.float(), k.float(), v.float())
+                e = (o.float() - ref).abs().max().item()
+                if not e <= atol:
+                    fail(f"attention N={n} B={b} {dtype}: max abs err {e} > {atol}")
+                key = "f32" if dtype == torch.float32 else "bf16"
+                err[key] = max(err[key], e)
+        q, k, v = (torch.randn((32, h, n, d), generator=gen, device="cuda").to(torch.bfloat16) for _ in range(3))
+        times[n] = (cuda_time_ms(lambda: at.flash_mha(q, k, v), 50),
+                    cuda_time_ms(lambda: at.attention_plain(q, k, v), 50))
+    print(f"[attn] ok: 20 checks; max abs err f32 {err['f32']:.3g}, bf16 {err['bf16']:.3g}")
+    print("[attn] per call b32 bf16 h64 d8 (N: kernel_ms / plain_ms): "
+          + ", ".join(f"N={n}: {a:.4f}/{p:.4f}" for n, (a, p) in times.items()) + f"  [{card}]")
+    # One UNet forward of the slice: 5 calls at N=4 (2x2) and 1 at N=1 (mid).
+    per_forward = (5 * times[4][0] + times[1][0], 5 * times[4][1] + times[1][1])
+    return err, per_forward
+
+
+def build_pipeline():
+    import torch
+
+    from audio_diffusion_torch.mel import Mel
+    from audio_diffusion_torch.models import AutoencoderKL, UNet2D, VAEConfig, unconditional_config
+    from audio_diffusion_torch.pipelines import AudioDiffusionPipeline
+    from audio_diffusion_torch.schedulers import DDIMScheduler
+
+    vae_cfg = VAEConfig(sample_size=256, dtype="bfloat16")
+    vae = AutoencoderKL(vae_cfg).init_params(torch.Generator().manual_seed(1))
+    cfg = unconditional_config(sample_size=vae_cfg.latent_hw(256, 256), dtype="bfloat16", fused_groupnorm=True)
+    unet = UNet2D(cfg).init_params(torch.Generator().manual_seed(0))
+    mel = Mel(x_res=256, y_res=256, hop_length=512, device="cuda")
+    return AudioDiffusionPipeline(unet, mel, DDIMScheduler(), vae, device="cuda")
+
+
+def phase_main(pipe, card: str):
+    import numpy as np
+    import torch
+
+    from audio_diffusion_torch.ops import attention as at
+    from audio_diffusion_torch.ops import fused_groupnorm as gn
+    from audio_diffusion_torch.pipelines.pipeline import pcm16_quantize
+
+    counters = (gn.group_norm_stats, gn.group_norm_silu_apply, at.flash_mha)
+    warm = {}
+    for b, seed in REQUESTS:  # warm-up: one full request of each batch size
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe(batch_size=b, steps=STEPS, generator=torch.Generator(device="cuda").manual_seed(seed),
+             return_arrays=True)
+        torch.cuda.synchronize()
+        warm[b] = time.perf_counter() - t0
+
+    for c in counters:
+        c.launches = 0
+    for b, seed in REQUESTS:
+        before = [c.launches for c in counters]
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        raw, audio = pipe(batch_size=b, steps=STEPS, generator=gen, return_arrays=True)
+        pcm = pcm16_quantize(audio)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        finite = bool(torch.isfinite(audio).all().item())
+        raw_np, pcm_np = raw.cpu().numpy(), pcm.cpu().numpy()
+        delta = [c.launches - x for c, x in zip(counters, before)]
+        if raw_np.dtype != np.uint8 or raw_np.shape != (b, 256, 256):
+            fail(f"request b={b}: bad spectrograms {raw_np.dtype} {raw_np.shape}")
+        if not finite:
+            fail(f"request b={b}: non-finite audio before quantisation")
+        if pcm_np.dtype != np.int16 or not np.abs(pcm_np.astype(np.int32)).max() > 1000:
+            fail(f"request b={b}: silent or degenerate int16 audio")
+        want = [64 * STEPS, 64 * STEPS, 6 * STEPS]
+        if delta != want:
+            fail(f"request b={b}: launches (stats, apply, attn) {delta}, expected {want}")
+        print(f"[main] request batch={b}: {wall:.4f} s wall (warm-up call {warm[b]:.4f} s), "
+              f"{b / wall:.4f} samples/s, "
+              f"launches stats/apply/attn {delta}, audio {tuple(pcm_np.shape)} int16 peak "
+              f"{int(np.abs(pcm_np.astype(np.int32)).max())}, spectrogram std {raw_np.std():.3f}  [{card}]")
+    launches = {c.__name__: c.launches for c in counters}
+    print(f"[main] ok: {len(REQUESTS)} requests at {STEPS} steps; launch counters {launches}")
+    return launches
+
+
+def phase_layers(pipe, card: str):
+    """Per-layer device times at batch 32 (CUDA events), for the breakdown."""
+    import torch
+
+    from audio_diffusion_torch.pipelines.pipeline import LATENT_SCALE, postprocess_images
+
+    b = 32
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn((b, 32, 32, 1), generator=gen, device="cuda")
+    t = torch.full((b,), 500, dtype=torch.long, device="cuda")
+    sched = pipe.scheduler.schedule(STEPS)
+    with torch.inference_mode():
+        unet_ms = cuda_time_ms(lambda: pipe.scheduler.step(pipe.unet(x, t), 500, x, sched), 10)
+        img = pipe.vqvae.decode(x / LATENT_SCALE)
+        vae_ms = cuda_time_ms(lambda: pipe.vqvae.decode(x / LATENT_SCALE), 3)
+        post_ms = cuda_time_ms(lambda: postprocess_images(img), 10)
+        raw = postprocess_images(img)
+        gl = {p: cuda_time_ms(lambda: pipe.mel.images_to_audio(raw, generator=gen, projection=p), 2)
+              for p in ("fft", "matmul")}
+    print(f"[layers] batch 32 device ms: unet_step {unet_ms:.4f} (x{STEPS} = {unet_ms * STEPS:.2f}), "
+          f"vae_decode {vae_ms:.4f}, postprocess {post_ms:.4f}, nnls+gl fft {gl['fft']:.4f}, "
+          f"nnls+gl matmul {gl['matmul']:.4f}  [{card}]")
+    return {"unet_step": unet_ms, "vae_decode": vae_ms, "postprocess": post_ms, "gl": gl}
+
+
+def phase_profile(pipe, card: str):
+    """torch.profiler over one batch-32 request: device busy share of the
+    wall time and the kernels that take the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device="cuda").manual_seed(104)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pipe(batch_size=32, steps=STEPS, generator=gen, return_arrays=True)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    events = [e for e in prof.key_averages() if dev_us(e) > 0]
+    busy = sum(dev_us(e) for e in events)
+    print(f"[profile] batch 32, {STEPS} steps, profiled wall {wall_us / 1e3:.2f} ms, device busy "
+          f"{busy / 1e3:.2f} ms = {100 * busy / wall_us:.2f}% (idle {100 - 100 * busy / wall_us:.2f}%)  [{card}]")
+    for e in sorted(events, key=dev_us, reverse=True)[:12]:
+        print(f"  {dev_us(e) / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
+    ours = []
+    for name in ("gn_stats_kernel", "gn_apply_kernel", "mha_fwd_kernel"):
+        hits = [e for e in events if name in e.key]
+        ours.append(f"{name} {sum(dev_us(e) for e in hits) / 1e3:.3f} ms / {sum(e.count for e in hits)}x")
+    print("[profile] this repo's kernels, device time in that request: " + "; ".join(ours))
+
+
+def phase_unet_reference():
+    """One f32 forward of the full-width UNet on the card (kernels, TF32 off)
+    against the same weights on the CPU (plain versions)."""
+    import torch
+
+    from audio_diffusion_torch.models import UNet2D, unconditional_config
+
+    cfg = unconditional_config(sample_size=(32, 32), fused_groupnorm=True)
+    unet = UNet2D(cfg).init_params(torch.Generator().manual_seed(0))
+    x = torch.randn((2, 32, 32, 1), generator=torch.Generator().manual_seed(3))
+    t = torch.tensor([999, 20])
+    with torch.inference_mode():
+        ref = unet(x, t)
+        out = unet.to("cuda")(x.cuda(), t.cuda()).cpu()
+    err = (out - ref).abs().max().item()
+    # cuDNN and the CPU convolutions sum in other orders through ~100 layers
+    tol = 1e-3 * max(1.0, ref.abs().max().item())
+    if not (torch.isfinite(out).all() and err <= tol):
+        fail(f"f32 UNet on the card vs CPU: max abs err {err} > {tol}")
+    print(f"[ref] ok: f32 UNet forward, card (kernels) vs CPU (plain): max abs err {err:.3g} (tol {tol:.3g})")
+
+
+def phase_fidelity(pipe, card: str):
+    import numpy as np
+    import torch
+
+    from audio_diffusion_torch.models import AutoencoderKL
+
+    mel = pipe.mel
+    rng = np.random.default_rng(0)
+    tt = np.arange(mel.slice_size) / mel.get_sample_rate()
+    audio = sum(np.sin(2 * np.pi * f * tt) * a for f, a in ((220.0, 0.5), (587.33, 0.3), (1760.0, 0.2)))
+    audio = (audio + 0.1 * rng.standard_normal(mel.slice_size)).astype(np.float32)
+    img = mel.spectrogram_images_from_audio(audio[None])
+    maes = {}
+    for proj in ("fft", "matmul"):
+        rec = mel.images_to_audio(img, projection=proj)[0]
+        rec = torch.nn.functional.pad(rec, (0, mel.slice_size - rec.shape[0]))
+        img2 = mel.spectrogram_images_from_audio(rec[None])
+        maes[proj] = (img.float() - img2.float()).abs().mean().item()
+        if not maes[proj] < GL_BOUND:
+            fail(f"GL round-trip MAE ({proj}) {maes[proj]:.4f} >= {GL_BOUND}")
+
+    x = (img.float() / 255.0 * 2 - 1)[..., None]  # (1, 256, 256, 1)
+    vae32 = AutoencoderKL(dataclasses.replace(pipe.vqvae.config, dtype="float32"))
+    vae32.load_state_dict(pipe.vqvae.state_dict(), strict=True)
+    vae32 = vae32.to("cuda").eval()
+    with torch.inference_mode():
+        rec_b = pipe.vqvae.decode(pipe.vqvae.encode(x).mode()).float()
+        rec_32 = vae32.decode(vae32.encode(x).mode())
+    vae_mae = (rec_b - rec_32).abs().mean().item() * 127.5
+    if not vae_mae < VAE_BOUND:
+        fail(f"bf16 VAE round trip drifted {vae_mae:.4f} uint8-MAE from f32 (bound {VAE_BOUND})")
+    print(f"[fidelity] ok: gl_roundtrip_mae fft {maes['fft']:.4f}, matmul {maes['matmul']:.4f} (< {GL_BOUND:.2f}); "
+          f"vae_dtype_mae {vae_mae:.4f} (< {VAE_BOUND:.2f})  [{card}]")
+    return maes, vae_mae
+
+
+def main() -> int:
+    if not (REPO / "audio_diffusion_torch" / "csrc").is_dir():
+        print("chip_smoke: audio_diffusion_torch/ not found beside this script; run it from a checkout",
+              file=sys.stderr)
+        return 2
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(REPO))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = card_line()
+    print(card)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}; "
+          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
+          f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+    t_start = time.perf_counter()
+
+    from audio_diffusion_torch.models import unconditional_config
+
+    phase_build()
+    cfg = unconditional_config(sample_size=(32, 32), dtype="bfloat16", fused_groupnorm=True)
+    gn_err, gn_t = phase_groupnorm(cfg, card)
+    at_err, at_t = phase_attention(card)
+    phase_unet_reference()
+    t0 = time.perf_counter()
+    pipe = build_pipeline()
+    print(f"[main] built full-width latent-256 pipeline (bf16, fused GroupNorm) in "
+          f"{time.perf_counter() - t0:.2f} s")
+    launches = phase_main(pipe, card)
+    phase_layers(pipe, card)
+    phase_profile(pipe, card)
+    phase_fidelity(pipe, card)
+
+    kernels = [
+        {"name": "group_norm_stats", "route": "cuda", "source": "audio_diffusion_torch/csrc/group_norm_silu.cu",
+         "replaces": "audio_diffusion_tpu/ops/pallas_groupnorm.py:51", "launches": launches["group_norm_stats"],
+         "max_abs_err": gn_err["stats"], "ms": gn_t["stats"], "plain_ms": gn_t["stats_plain"]},
+        {"name": "group_norm_silu_apply", "route": "cuda", "source": "audio_diffusion_torch/csrc/group_norm_silu.cu",
+         "replaces": "audio_diffusion_tpu/ops/pallas_groupnorm.py:66",
+         "launches": launches["group_norm_silu_apply"],
+         "max_abs_err": gn_err["apply"], "ms": gn_t["apply"], "plain_ms": gn_t["apply_plain"]},
+        {"name": "flash_mha", "route": "cuda", "source": "audio_diffusion_torch/csrc/mha.cu",
+         "replaces": "audio_diffusion_tpu/ops/pallas_attention.py:55", "launches": launches["flash_mha"],
+         "max_abs_err": at_err["f32"], "ms": at_t[0], "plain_ms": at_t[1]},
+    ]
+    for k in kernels:
+        if not k["launches"] > 0:
+            fail(f"kernel {k['name']} was not launched on the main path")
+    print(f"(ms, plain_ms: device time per UNet forward at batch 32, bf16; total run "
+          f"{time.perf_counter() - t_start:.1f} s)  [{card}]")
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
