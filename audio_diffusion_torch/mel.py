@@ -44,7 +44,7 @@ class Mel:
         hop_length: int = 512,
         top_db: int = 80,
         n_iter: int = 32,
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
     ):
         self.config = MelConfig(x_res, y_res, sample_rate, n_fft, hop_length, top_db, n_iter)
         self.x_res, self.y_res = x_res, y_res
@@ -57,6 +57,9 @@ class Mel:
         # slice_size carries the -1 that makes the centered STFT give exactly x_res frames.
         self.slice_size = x_res * hop_length - 1
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Mel: CUDA device requested but torch.cuda is not available; "
+                               "pass device='cpu' to run on the CPU")
         self.mel_basis = mel_filterbank(sample_rate, n_fft, self.n_mels)  # numpy (n_mels, n_freq)
         self._basis_t = torch.as_tensor(self.mel_basis, device=self.device)
         self._gl_mats = None

@@ -1,15 +1,19 @@
 """Build the package's CUDA kernels with ``nvcc`` and load them with ctypes.
 
-Every ``csrc/*.cu`` file is compiled at first use into ONE shared library with
-a plain C interface (no PyTorch headers, which would add minutes to a build):
+Every ``csrc/*.cu`` file is compiled at first use, one ``nvcc`` process per
+source, all started together, and linked into ONE shared library with a plain
+C interface (no PyTorch headers, which would add minutes to a build):
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC -c <source>
+    nvcc -shared <objects>
 
 The library is named after a hash of the sources and flags, so an edit to a
 kernel rebuilds it, and lives in ``audio_diffusion_torch/_build/`` (listed in
 ``.gitignore``). Each C entry point launches on the stream it is given and
 returns ``cudaGetLastError()``; :func:`check` turns a non-zero code into an
-exception. Nothing here runs at import time.
+exception. Kernel attributes (shared memory above 48 KB, clusters of more
+than 8 CTAs) are set once when the library loads, never inside a launch.
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -25,17 +29,17 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # Entry point -> argtypes. Every pointer and the stream are c_void_p, or
 # ctypes would pass them as 32-bit ints.
 SIGNATURES = {
-    # x, partials, is_bf16, B*G, slab, splits, stream
-    "adt_group_norm_stats": (_P, _P, _I, _LL, _I, _I, _P),
-    # x, partials, scale, bias, y, is_bf16, B*G, groups, cs, H*W, splits, eps, stream
-    "adt_group_norm_silu_apply": (_P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _F, _P),
+    # (none): sets the GroupNorm kernel's attributes; called once, at load
+    "adt_group_norm_silu_init": (),
+    # x, scale, bias, y, B*G, eps, vec, plan (a fused_groupnorm._CPlan), stream
+    "adt_group_norm_silu": (_P, _P, _P, _P, _LL, _F, _I, _P, _P),
     # q, k, v, o, is_bf16, B*heads, N, d, scale, stream
     "adt_mha_fwd": (_P, _P, _P, _P, _I, _LL, _I, _I, _F, _P),
 }
@@ -88,18 +92,32 @@ class KernelLibrary:
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
             setattr(self, name, fn)
+        check(self.adt_group_norm_silu_init(), "adt_group_norm_silu_init")
+
+
+def _run(cmds: list) -> str:
+    """Run the commands side by side; raise if any fails. Returns their output."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for cmd in cmds]
+    outs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+    return "".join(outs)
 
 
 def _compile(path: Path):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    nvcc, sources = _nvcc(), _sources()
+    objects = [str(tmp.with_name(f"{tmp.name}.{src.stem}.o")) for src in sources]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        log = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)] for src, obj in zip(sources, objects)])
+        log += _run([[nvcc, "-shared", "-o", str(tmp), *objects]])
+    finally:
+        for obj in objects:
+            Path(obj).unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
     os.replace(tmp, path)  # atomic: a concurrent build never loads a partial file
     path.with_suffix(".log").write_text(log)
     return seconds, log

@@ -11,29 +11,61 @@ import torch
 from audio_diffusion_torch.ops import attention as at
 from audio_diffusion_torch.ops import fused_groupnorm as gn
 
+# One (shape, groups) per route of the GroupNorm+SiLU kernel; the slabs are
+# whole 16-byte packs, so x is read with vector loads.
+ROUTES = {
+    "warp": ((4, 512, 4, 4), 32),  # 256 values per slab
+    "block": ((4, 256, 16, 16), 32),  # 2,048
+    "cluster": ((1, 128, 256, 256), 32),  # 262,144: the pixel-256 UNet's first level
+    "reread": ((1, 32, 512, 512), 4),  # 2,097,152: too large for a 16-CTA cluster's shared memory
+}
+# Slabs that are not whole packs take scalar loads.
+ODD = {"warp": ((3, 96, 5, 7), 32), "block": ((2, 64, 33, 33), 32), "cluster": ((1, 64, 129, 131), 32)}
+# 16 CTAs of 51,200 f32 values each: every CTA at the shared-memory limit.
+FULL_CLUSTER = ((1, 2, 640, 640), 1)
+
 
 def _cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
 
 
+def _inputs(shape, dtype, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    c = shape[1]
+    x = (torch.randn(shape, generator=g, device="cuda") * 3 + 1).to(dtype)
+    return x, torch.randn(c, generator=g, device="cuda"), torch.randn(c, generator=g, device="cuda")
+
+
+def _assert_close_to_plain(y, x, w, b, groups, eps=1e-5):
+    """f32 within 1e-5 * max|y|; bf16 within one bf16 ulp of the f32 result
+    (plus that f32 tolerance for values near 0)."""
+    ref = gn.group_norm_silu_plain(x.float(), w, b, groups, eps)
+    d = (y.float() - ref).abs()
+    tol = 1e-5 * ref.abs().max().item()
+    if y.dtype == torch.float32:
+        assert d.max().item() <= tol
+    else:
+        _, e = torch.frexp(ref.abs().clamp(min=torch.finfo(torch.float32).tiny))
+        ulp = torch.ldexp(torch.ones_like(ref), e - 8)  # bf16 keeps 8 significant bits
+        assert (d / (ulp + tol)).max().item() <= 1.0
+
+
 def test_cpu_tensors_take_the_plain_version_and_never_count():
-    before = (gn.group_norm_stats.launches, gn.group_norm_silu_apply.launches, at.flash_mha.launches)
+    before = (gn.group_norm_silu.launches, at.flash_mha.launches)
     x = torch.randn(2, 64, 4, 4)
     w = torch.ones(64)
     torch.testing.assert_close(gn.fused_group_norm_silu(x, w, w, 32, 1e-5),
                                gn.group_norm_silu_plain(x, w, w, 32, 1e-5), rtol=0, atol=0)
     q = torch.randn(1, 64, 4, 8)
     torch.testing.assert_close(at.multi_head_attention(q, q, q), at.attention_plain(q, q, q), rtol=0, atol=0)
-    assert (gn.group_norm_stats.launches, gn.group_norm_silu_apply.launches, at.flash_mha.launches) == before
+    assert (gn.group_norm_silu.launches, at.flash_mha.launches) == before
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
     x = torch.randn(2, 64, 4, 4)
     with pytest.raises(ValueError, match="CUDA"):
-        gn.group_norm_stats(x, 32)
-    with pytest.raises(ValueError, match="CUDA"):
-        gn.group_norm_silu_apply(x, torch.zeros(64, 1, 2), torch.ones(64), torch.ones(64), 32, 1e-5)
+        gn.group_norm_silu(x, torch.ones(64), torch.ones(64), 32, 1e-5)
     q = torch.randn(1, 64, 4, 8)
     with pytest.raises(ValueError, match="CUDA"):
         at.flash_mha(q, q, q)
@@ -58,10 +90,13 @@ def test_cuda_wrappers_refuse_requires_grad():
 def test_cuda_wrappers_refuse_what_the_kernels_cannot_take():
     _cuda()
     x = torch.randn(2, 64, 4, 4, device="cuda")
+    w = torch.ones(64, device="cuda")
     with pytest.raises(TypeError):
-        gn.group_norm_stats(x.half(), 32)
+        gn.group_norm_silu(x.half(), w, w, 32)
     with pytest.raises(ValueError, match="contiguous"):
-        gn.group_norm_stats(x.transpose(2, 3), 32)
+        gn.group_norm_silu(x.transpose(2, 3), w, w, 32)
+    with pytest.raises(ValueError, match="f32"):
+        gn.group_norm_silu(x, w.cpu(), w, 32)
     q = torch.randn(1, 4, 16, 24, device="cuda")
     with pytest.raises(ValueError, match="head dim"):
         at.flash_mha(q, q, q)
@@ -85,3 +120,70 @@ def test_kernels_match_plain_and_rows_do_not_depend_on_the_batch(dtype):
                                atol=1e-5 if dtype == torch.float32 else 1e-2)
     torch.testing.assert_close(at.multi_head_attention(q[:1].contiguous(), k[:1].contiguous(),
                                                        v[:1].contiguous()), o[:1], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [*ROUTES, *("odd " + k for k in ODD), "full cluster"])
+def test_every_route_matches_plain(case, dtype):
+    _cuda()
+    route = case.split()[-1]
+    shape, groups = {"odd": ODD, "full": {"cluster": FULL_CLUSTER}}.get(case.split()[0], ROUTES)[route]
+    assert gn.launch_plan(*shape[1:], groups, dtype).route == route
+    x, w, b = _inputs(shape, dtype)
+    for eps in (1e-5, 1e-6):
+        y = gn.group_norm_silu(x, w, b, groups, eps)
+        torch.cuda.synchronize()
+        assert y.shape == x.shape and y.dtype == dtype
+        _assert_close_to_plain(y, x, w, b, groups, eps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("route", ["warp", "block", "cluster"])
+def test_row_is_bitwise_the_same_alone_and_in_batch_32(route, dtype):
+    _cuda()
+    shape, groups = ROUTES[route]
+    x, w, b = _inputs((32, *shape[1:]), dtype, seed=1)
+    y = gn.group_norm_silu(x, w, b, groups)
+    torch.testing.assert_close(gn.group_norm_silu(x[:1].contiguous(), w, b, groups), y[:1], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["warp", "block", "cluster"])
+def test_unaligned_input_takes_scalar_loads_and_gives_the_same_bits(route):
+    _cuda()
+    shape, groups = ROUTES[route]
+    x, w, b = _inputs(shape, torch.bfloat16, seed=2)
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device="cuda")
+    shifted = flat[1:].view(shape)  # 2 bytes past a 16-byte boundary
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 16 and shifted.is_contiguous()
+    torch.testing.assert_close(gn.group_norm_silu(shifted, w, b, groups), gn.group_norm_silu(x, w, b, groups),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_one_call_is_one_launch():
+    _cuda()
+    for shape, groups in ROUTES.values():
+        x, w, b = _inputs(shape, torch.bfloat16)
+        before = gn.group_norm_silu.launches
+        gn.fused_group_norm_silu(x, w, b, groups)
+        assert gn.group_norm_silu.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_graph_capture_replays_the_same_output():
+    _cuda()
+    cases = [(_inputs(shape, torch.bfloat16, seed=3), groups) for shape, groups in ROUTES.values()]
+    eager = [gn.group_norm_silu(x, w, b, groups) for (x, w, b), groups in cases]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [gn.group_norm_silu(x, w, b, groups) for (x, w, b), groups in cases]
+    for out in outs:
+        out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    for out, want in zip(outs, eager):
+        torch.testing.assert_close(out, want, rtol=0, atol=0)

@@ -80,7 +80,7 @@ def test_griffin_lim_matches_jax_with_shared_phase(projection):
 
 def test_mel_roundtrip_mae_within_bench_bound():
     """The bench.py:196-214 probe against the port at 256x256, hop 512."""
-    mel = Mel(x_res=256, y_res=256, hop_length=512)
+    mel = Mel(x_res=256, y_res=256, hop_length=512, device="cpu")
     rng = np.random.default_rng(0)
     t = np.arange(mel.slice_size) / mel.get_sample_rate()
     audio = sum(np.sin(2 * np.pi * f * t) * a for f, a in ((220.0, 0.5), (587.33, 0.3), (1760.0, 0.2)))
@@ -91,3 +91,11 @@ def test_mel_roundtrip_mae_within_bench_bound():
     img2 = mel.spectrogram_images_from_audio(torch.nn.functional.pad(rec, (0, mel.slice_size - rec.shape[0]))[None])
     mae = (img.float() - img2.float()).abs().mean().item()
     assert mae < 2.41 + 1.1, mae
+
+
+def test_mel_defaults_to_the_card_and_raises_without_cuda(monkeypatch):
+    """The port's entry points run on the card unless the caller asks for the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Mel()
+    assert Mel(device="cpu").device == torch.device("cpu")

@@ -48,8 +48,8 @@ def pipes():
     unet, vae = TorchUNet(TorchUNetConfig(**UNET_KW)), TorchVAE(TorchVAEConfig(**VAE_KW))
     unet.load_state_dict(to_torch(unet_state_dict(params, cfg)), strict=True)
     vae.load_state_dict(to_torch(vae_state_dict(vparams, vcfg)), strict=True)
-    tpipe = TorchPipeline(unet, TorchMel(x_res=32, y_res=32, hop_length=512, n_iter=4), TorchDDIM(), vae,
-                          device="cpu")
+    tmel = TorchMel(x_res=32, y_res=32, hop_length=512, n_iter=4, device="cpu")
+    tpipe = TorchPipeline(unet, tmel, TorchDDIM(), vae, device="cpu")
     return jpipe, tpipe
 
 
