@@ -180,10 +180,11 @@ class SelfAttention2D(nn.Module):
         n = h * w
         y = group_norm(x, self.group_norm).reshape(b, c, n).transpose(1, 2)  # (B, N, C)
 
-        def heads(t):  # (B, N, C) -> contiguous (B, heads, N, d)
-            return t.reshape(b, n, self.heads, c // self.heads).transpose(1, 2).contiguous()
+        def heads(t):  # (B, N, C) -> a (B, heads, N, d) view, uncopied: the kernel takes the strides
+            return t.reshape(b, n, self.heads, c // self.heads).transpose(1, 2)
 
         o = multi_head_attention(heads(self.to_q(y)), heads(self.to_k(y)), heads(self.to_v(y)))
+        # On the card o views a (B, N, heads, d) buffer, so this reshape copies nothing.
         o = self.to_out[0](o.transpose(1, 2).reshape(b, n, c))
         return o.transpose(1, 2).reshape(b, c, h, w) + x
 

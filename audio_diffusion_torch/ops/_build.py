@@ -40,9 +40,15 @@ SIGNATURES = {
     "adt_group_norm_silu_init": (),
     # x, scale, bias, y, B*G, eps, vec, plan (a fused_groupnorm._CPlan), stream
     "adt_group_norm_silu": (_P, _P, _P, _P, _LL, _F, _I, _P, _P),
-    # q, k, v, o, is_bf16, B*heads, N, d, scale, stream
-    "adt_mha_fwd": (_P, _P, _P, _P, _I, _LL, _I, _I, _F, _P),
+    # (none): sets the attention kernel's attributes; called once, at load
+    "adt_mha_init": (),
+    # args (attention._ARGS: q, k, v, o, B*heads, heads, the b/h/n strides, vec), plan (an attention._CPlan),
+    # stream
+    "adt_mha_fwd": (_P, _P, _P),
 }
+# Entry points called with the GIL held (through ctypes.PyDLL): they read an
+# argument array that the wrapper fills in place before each call.
+GIL_HELD = frozenset({"adt_mha_fwd"})
 
 
 def _sources() -> list:
@@ -87,12 +93,14 @@ class KernelLibrary:
             self.build_seconds, self.build_log = _compile(path)
         self.path = path
         self._lib = ctypes.CDLL(str(path))
+        self._gil_lib = ctypes.PyDLL(str(path))
         for name, argtypes in SIGNATURES.items():
-            fn = getattr(self._lib, name)
+            fn = getattr(self._gil_lib if name in GIL_HELD else self._lib, name)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
             setattr(self, name, fn)
         check(self.adt_group_norm_silu_init(), "adt_group_norm_silu_init")
+        check(self.adt_mha_init(), "adt_mha_init")
 
 
 def _run(cmds: list) -> str:

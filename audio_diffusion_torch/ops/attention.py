@@ -1,24 +1,57 @@
 """Many-small-heads self-attention: the port of ``audio_diffusion_tpu/ops/pallas_attention.py``.
 
-Layout (B, heads, N, d), softmax scale 1/sqrt(d), scores and softmax in f32,
-output in q's dtype. On the card :func:`flash_mha` launches the CUDA kernel
-of ``csrc/mha.cu`` (replaces ``_attn_kernel``), which streams keys and values
-through shared memory with an online softmax, so any N works: the TPU
+Layout (B, heads, N, d), softmax scale 1/sqrt(d), scores, max and sum in f32,
+output in q's dtype. On the card :func:`flash_mha` launches ONE kernel of
+``csrc/mha.cu`` per call (replaces ``_attn_kernel``). Any N works: the TPU
 version's ``MAX_TOKENS``/``shapes_qualify`` VMEM limits do not apply, and
 every CUDA call goes to the kernel, including the N=4 and N=1 levels of the
-latent UNet. The kernel has no backward yet, so it refuses inputs that
-autograd would record.
+latent UNet.
+
+Which kernel runs is the :class:`AttentionPlan` of :func:`attention_plan`, a
+function of (N, d, dtype) only and never of B, so a row's result does not
+depend on the batch around it:
+
+* ``small``: N <= :data:`SMALL_MAX_N` and d <= 32 (the latent UNets' N=1, 4
+  and 16): up to 4 lanes per query row, each folding in every 4th key, merged
+  by shuffles; many heads per CTA, no shared memory.
+* ``mma``: bf16, d = 8, larger N (the pixel UNets' N=256 and 1024): tensor
+  cores for both products, K and V staged in shared memory, online softmax.
+* ``simt``: everything else (f32 above the ``small`` threshold, bf16 with
+  d != 8, d >= 64): exact f32 arithmetic on the CUDA cores.
+
+:func:`flash_mha` takes views whose last dimension has stride 1 (the UNet's
+projections transposed to (B, heads, N, d), uncopied) and returns a view of
+a (B, N, heads, d) buffer. The kernel has no backward yet, so it refuses
+inputs that autograd would record.
 """
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
 import math
 
 import torch
 
 from . import _build
 
-HEAD_DIMS = (8, 16, 32, 64, 128)  # template instances in csrc/mha.cu
+HEAD_DIMS = (8, 16, 32, 64, 128)  # the head dims csrc/mha.cu instantiates
+DTYPES = (torch.float32, torch.bfloat16)
+# Route constants; the csrc constants of the same meaning must agree.
+SMALL_MAX_N = 16  # kSmallMaxN
+SMALL_MAX_D = 32  # the small route's instances: d in (8, 16, 32)
+SMALL_THREADS = 256  # kSmallThreads
+SMALL_MAX_SPLIT = 4  # lanes per query row at most on the small route
+MMA_RESIDENT_KEYS = 2048  # kResidentKeys: K and V of a whole head in shared memory up to here
+MMA_CHUNK_KEYS = 1024  # kChunkKeys: streamed through two buffers above it
+# Warps per CTA at N <= MMA_WARPS_SPLIT_N and above it (at most kMmaMaxThreads / 32):
+# 4 are faster at the pixel-256 UNet's N=256, 8 at the pixel-512 UNet's N=1024
+# (chip_smoke.py, [attn-sweep]).
+MMA_WARPS = (4, 8)
+MMA_WARPS_SPLIT_N = 512
+MMA_KEY_BLOCK = 64  # kKeyBlock
+_ROUTE_IDS = {"small": 0, "mma": 1, "simt": 2}
+_LOG2E = 1.4426950408889634
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -30,30 +63,123 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     return torch.matmul(p, v.float()).to(q.dtype)
 
 
+# ----------------------------------------------------------------- launch plan
+
+class _CPlan(ctypes.Structure):
+    """The kernel's view of a plan: ``struct MhaPlan`` in csrc/mha.cu."""
+
+    _fields_ = [*((name, ctypes.c_int) for name in ("route", "is_bf16", "n", "d", "threads", "log_split", "chunk",
+                                                    "smem")),
+                ("c", ctypes.c_float)]
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionPlan:
+    """How one call spreads its heads over the card.
+
+    route: "small", "mma" or "simt" (module docstring). threads: per CTA.
+    chunk: keys of K and V staged in shared memory per pass on the mma route
+    (the whole head rounded up to a 64-key block, or :data:`MMA_CHUNK_KEYS`
+    when it does not fit); 0 elsewhere. smem: the mma route's dynamic shared
+    memory in bytes. split: lanes per query row on the small route.
+    """
+
+    route: str
+    n: int
+    d: int
+    threads: int
+    split: int  # small route: lanes per query row (N rounded up to a power of two, at most 4), 1 elsewhere
+    chunk: int
+    smem: int
+    pack: int  # values per 16-byte load
+    c_plan: _CPlan = dataclasses.field(repr=False, compare=False)  # what the C entry point reads
+    c_address: int = dataclasses.field(repr=False, compare=False)  # its address, passed at each launch
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+def _make_plan(n: int, d: int, dtype: torch.dtype) -> AttentionPlan:
+    if dtype not in DTYPES:
+        raise TypeError(f"flash_mha: dtype must be float32 or bfloat16, got {dtype}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_mha: head dim {d} not in {HEAD_DIMS}")
+    if not 1 <= n < 2**31:
+        raise ValueError(f"flash_mha: sequence length {n} outside [1, 2**31)")
+    chunk = smem = 0
+    split = 1
+    if n <= SMALL_MAX_N and d <= SMALL_MAX_D:
+        route, threads, split = "small", SMALL_THREADS, min(SMALL_MAX_SPLIT, _next_pow2(n))
+    elif dtype == torch.bfloat16 and d == 8:
+        route = "mma"
+        threads = 32 * min(MMA_WARPS[n > MMA_WARPS_SPLIT_N], -(-n // 16))
+        padded = -(-n // MMA_KEY_BLOCK) * MMA_KEY_BLOCK
+        chunk = padded if padded <= MMA_RESIDENT_KEYS else MMA_CHUNK_KEYS
+        smem = (2 if chunk == padded else 4) * chunk * 16  # K and V rows of 16 bytes, one or two buffers
+    else:
+        route, threads = "simt", 32 if n <= 32 else (64 if n <= 64 else 128)
+    c = 1.0 / math.sqrt(d) * _LOG2E
+    c_plan = _CPlan(_ROUTE_IDS[route], int(dtype == torch.bfloat16), n, d, threads, split.bit_length() - 1, chunk,
+                    smem, c)
+    pack = 16 // (4 if dtype == torch.float32 else 2)
+    return AttentionPlan(route, n, d, threads, split, chunk, smem, pack, c_plan, ctypes.addressof(c_plan))
+
+
+_PLANS: dict = {}
+
+
+def attention_plan(n: int, d: int, dtype: torch.dtype) -> AttentionPlan:
+    """The kernel's launch plan for one (N, d, dtype), made once and kept."""
+    key = (n, d, dtype)
+    plan = _PLANS.get(key)
+    if plan is None:
+        plan = _PLANS[key] = _make_plan(*key)
+    return plan
+
+
+# ----------------------------------------------------------------- CUDA kernel
+
+# The per-call values of adt_mha_fwd, filled in place: one ctypes argument
+# instead of ten. The entry point holds the GIL (_build.GIL_HELD), so no other
+# thread refills the array while the C side reads it.
+_ARGS = (ctypes.c_longlong * 10)()
+_ARGS_ADDRESS = ctypes.addressof(_ARGS)
+
+
 def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """CUDA attention kernel. q, k, v: contiguous (B, heads, N, d) tensors on
-    the card, one dtype (f32 or bf16), d in :data:`HEAD_DIMS`."""
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device.type != "cuda":
-            raise ValueError(f"flash_mha: {name} must be a CUDA tensor, got {t.device}")
-        if t.dtype not in (torch.float32, torch.bfloat16) or t.dtype != q.dtype:
-            raise TypeError(f"flash_mha: q, k, v must share dtype float32 or bfloat16, got {t.dtype}")
-        if t.dim() != 4 or t.shape != q.shape or t.device != q.device or not t.is_contiguous():
-            raise ValueError(f"flash_mha: {name} must be a contiguous (B, heads, N, d) tensor like q, "
-                             f"got {tuple(t.shape)}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+    """The CUDA kernel, one launch. q, k, v: (B, heads, N, d) tensors or views
+    on the current CUDA device with one dtype (f32 or bf16), d in
+    :data:`HEAD_DIMS`, the same strides, and stride 1 in the last dimension.
+    Returns (B, heads, N, d), a view of a new (B, N, heads, d) buffer. Never
+    synchronizes, so a CUDA graph can capture it."""
+    if not q.is_cuda:
+        raise ValueError(f"flash_mha: expected CUDA tensors, got {q.device}")
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"flash_mha: q, k, v must be (B, heads, N, d) of one shape, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    st = q.stride()
+    if st[3] != 1 or k.stride() != st or v.stride() != st:
+        raise ValueError(f"flash_mha: q, k, v need one stride set with stride 1 in the last dimension, got "
+                         f"{st}, {k.stride()}, {v.stride()}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_mha: q, k, v must share one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         raise RuntimeError("flash_mha has no backward yet (ROADMAP Queue 2); "
                            "call it under torch.no_grad() or torch.inference_mode()")
     b, h, n, d = q.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_mha: head dim {d} not in {HEAD_DIMS}")
-    o = torch.empty_like(q)
-    lib = _build.load()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = lib.adt_mha_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                               int(q.dtype == torch.bfloat16), b * h, n, d, 1.0 / math.sqrt(d), stream)
-    _build.check(code, "flash_mha")
+    plan = _PLANS.get((n, d, q.dtype)) or attention_plan(n, d, q.dtype)
+    dev = q.get_device()
+    if not k.get_device() == v.get_device() == dev == torch.cuda.current_device():
+        raise ValueError(f"flash_mha: q, k, v must lie on the current device cuda:{torch.cuda.current_device()}")
+    o = torch.empty_strided((b, h, n, d), (n * h * d, d, h * d, 1), dtype=q.dtype, device=q.device)
+    qp, kp, vp = q.data_ptr(), k.data_ptr(), v.data_ptr()
+    vec = int((qp | kp | vp) % 16 == 0 and (st[0] % plan.pack, st[1] % plan.pack, st[2] % plan.pack) == (0, 0, 0))
+    _ARGS[:] = (qp, kp, vp, o.data_ptr(), b * h, h, st[0], st[1], st[2], vec)
+    code = _build.load().adt_mha_fwd(_ARGS_ADDRESS, plan.c_address,
+                                     torch._C._cuda_getCurrentRawStream(dev))  # current stream, no Stream object
+    if code:
+        _build.check(code, f"flash_mha ({plan.route} route)")
     flash_mha.launches += 1
     return o
 
@@ -64,6 +190,6 @@ flash_mha.launches = 0
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """softmax(q k^T / sqrt(d)) v over layout (B, heads, N, d). CPU tensors
     take :func:`attention_plain`; CUDA tensors launch :func:`flash_mha` or raise."""
-    if q.device.type == "cpu":
+    if q.is_cpu:
         return attention_plain(q, k, v)
     return flash_mha(q, k, v)

@@ -12,8 +12,16 @@ Phases, one line each (plus detail lines):
              Then the 64 calls of one UNet forward timed three ways: CUDA
              events around eager calls, replayed from a CUDA graph, and
              torch's F.group_norm + F.silu; the bound share of the graph time
-  3. attn    attention kernel vs plain at h=64, d=8, N in {1,4,16,256,1024},
-             timed beside F.scaled_dot_product_attention and its byte bound
+  3. attn    the attention kernel vs its plain version on every route of
+             its launch plan (small, mma, simt): h=64, d=8, N in
+             {1,4,16,17,64,255,256,1000,1024} at batch 1 and 32 and N=2100
+             (above the mma route's shared-memory capacity) at batch 1, plus
+             d=32 and d=128; f32 and bf16; inputs are the strided views the
+             UNet hands over, bitwise equal to contiguous inputs; batch row 0
+             bitwise the same alone and in the batch; N=1 gives o == v. Then
+             per N the kernel timed by events and graph-replayed beside plain,
+             F.scaled_dot_product_attention and its bound, the largest of the
+             byte, tensor and exponential floors (attn_bound)
   4. main    the full-width latent-256 pipeline (bf16, fused GroupNorm,
              seeded random weights) answers batch-1, -8 and -32 requests of
              50 DDIM steps through ``AudioDiffusionPipeline.__call__``; the
@@ -43,6 +51,15 @@ VAE_BOUND = 2.0  # bench.py:231-232, uint8 MAE
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12  # tensor cores
 F32_FLOPS = 67e12  # outside the tensor cores
+# The special-function unit: 16 ex2 per clock per SM at compute capability 9.0
+# (NVIDIA's arithmetic-instruction throughput table for CUDA). The H100 SXM's
+# 132 SMs at its 1.98 GHz maximum clock give the default; the [attn] phase
+# uses the card's own SM count and maximum clock.
+EXP_PER_CLOCK_PER_SM = 16
+H100_EXP_PER_S = EXP_PER_CLOCK_PER_SM * 132 * 1.98e9
+ATTN_CHECK_N = (1, 4, 16, 17, 64, 255, 256, 1000, 1024)
+ATTN_STREAM_N = 2100  # above attention.MMA_RESIDENT_KEYS: K and V stream through two buffers
+ATTN_TIME_N = (1, 4, 16, 256, 1024)
 
 
 def fail(msg: str) -> None:
@@ -144,13 +161,29 @@ def gn_bytes(x) -> int:
     return 2 * x.numel() * x.element_size() + 2 * x.shape[1] * 4
 
 
-def attn_bound(q):
-    """(bound ms, bound_by) of one attention call: q, k, v read and o written,
-    against 4*B*h*N^2*d operations at the tensor cores' rate for the type."""
-    b, h, n, d = q.shape
-    t_bytes = 4 * q.numel() * q.element_size() / HBM_BYTES_PER_S
-    t_ops = 4 * b * h * n * n * d / (BF16_FLOPS if q.element_size() == 2 else F32_FLOPS)
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+def attn_bound(shape, itemsize: int, exp_per_s: float = H100_EXP_PER_S):
+    """(bound ms, bound_by) of one attention call on q of ``shape`` (B, h, N, d):
+    the largest of three floors. "bytes": q, k, v read and o written once at
+    the memory rate; "tensor": 4*B*h*N^2*d operations at the tensor cores'
+    bf16 rate (f32: the rate outside them); "exp": the B*h*N^2 exponentials
+    at the special-function unit's rate ``exp_per_s``."""
+    b, h, n, d = shape
+    floors = {"bytes": 4 * b * h * n * d * itemsize / HBM_BYTES_PER_S,
+              "tensor": 4 * b * h * n * n * d / (BF16_FLOPS if itemsize == 2 else F32_FLOPS),
+              "exp": b * h * n * n / exp_per_s}
+    bound_by = max(floors, key=floors.get)
+    return floors[bound_by] * 1e3, bound_by
+
+
+def card_exp_per_s() -> float:
+    """The special-function unit's ex2 rate on this card: 16 per clock per SM
+    at the maximum SM clock that nvidia-smi reports."""
+    import torch
+
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    mhz = float(out.stdout.strip().splitlines()[0])
+    return EXP_PER_CLOCK_PER_SM * torch.cuda.get_device_properties(0).multi_processor_count * mhz * 1e6
 
 
 def phase_groupnorm(cfg, card: str):
@@ -255,6 +288,20 @@ def phase_groupnorm(cfg, card: str):
     return err, t
 
 
+def sm_clock_during(fn) -> float:
+    """Median SM clock (MHz) that nvidia-smi samples every 20 ms while fn() runs."""
+    proc = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits", "-lms", "20"],
+                            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        time.sleep(0.1)
+        fn()
+    finally:
+        proc.terminate()
+        out = proc.communicate(timeout=30)[0]
+    mhz = sorted(float(x) for x in out.split() if x.replace(".", "", 1).isdigit())
+    return mhz[len(mhz) // 2] if mhz else float("nan")
+
+
 def phase_attention(card: str):
     import torch
     import torch.nn.functional as F
@@ -262,42 +309,133 @@ def phase_attention(card: str):
     from audio_diffusion_torch.ops import attention as at
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    h, d = 64, 8
+    exp_per_s = card_exp_per_s()
+    h = 64
+
+    def heads(b, n, d, dtype):  # (B, N, heads, d) projections seen as (B, heads, N, d), as the UNet passes them
+        return [torch.randn((b, n, h, d), generator=gen, device="cuda").to(dtype).transpose(1, 2) for _ in range(3)]
+
+    # (N, B, d): every route at d=8, the streamed mma route, and the simt route at d=32 and d=128
+    cases = [(n, b, 8) for n in ATTN_CHECK_N for b in (1, 32)] + [(ATTN_STREAM_N, 1, 8)] + [
+        (n, 2, d) for d in (32, 128) for n in (4, 17, 256)]
     err = {"f32": 0.0, "bf16": 0.0}
+    routes = {}
+    for n, b, d in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            plan = at.attention_plan(n, d, dtype)
+            streamed = " streamed" if plan.chunk and plan.chunk < n else ""
+            routes.setdefault(plan.route, set()).add(f"{'f32' if dtype == torch.float32 else 'bf16'} d={d} N={n}"
+                                                     + streamed)
+            q, k, v = heads(b, n, d, dtype)
+            o = at.flash_mha(q, k, v)
+            torch.cuda.synchronize()
+            ref = at.attention_plain(q.float(), k.float(), v.float())
+            diff = (o.float() - ref).abs()
+            what = f"attention N={n} B={b} d={d} {dtype} ({plan.route} route)"
+            if dtype == torch.float32:
+                tol = 1e-5 * ref.abs().max().item()
+                if not diff.max().item() <= tol:
+                    fail(f"{what}: max abs err {diff.max().item()} > {tol}")
+            else:
+                # P rounded to bf16 before P V (as reference_attention does): up to 2^-8 max|v|; then
+                # one bf16 ulp of the result
+                slack = 2.0 ** -8 * v.float().abs().max().item() + bf16_ulp(ref)
+                if not bool((diff <= slack).all()):
+                    fail(f"{what}: max abs err {diff.max().item()} beyond 2^-8 max|v| + 1 ulp")
+            key = "f32" if dtype == torch.float32 else "bf16"
+            err[key] = max(err[key], diff.max().item())
+            if not torch.equal(at.flash_mha(q.contiguous(), k.contiguous(), v.contiguous()), o):
+                fail(f"{what}: strided views and contiguous inputs differ")
+            if b > 1 and not torch.equal(at.flash_mha(q[:1], k[:1], v[:1]), o[:1]):
+                fail(f"{what}: batch row 0 differs alone and inside batch {b}")
+            if n == 1 and not torch.equal(o, v):
+                fail(f"{what}: one key must give o == v exactly")
+            del q, k, v, o, ref, diff
+    if set(routes) != {"small", "mma", "simt"}:
+        fail(f"the checks covered routes {sorted(routes)}, not all three")
+    if not any("streamed" in c for c in routes["mma"]):
+        fail("the checks did not cover the mma route's streamed K/V")
+    print(f"[attn] ok: {2 * len(cases)} checks (strided views bitwise equal to contiguous, batch rows bitwise "
+          f"independent, N=1 gives v); max abs err f32 {err['f32']:.3g}, bf16 {err['bf16']:.3g}")
+    for route in ("small", "mma", "simt"):
+        print(f"[attn] route {route}: " + ", ".join(sorted(routes[route], key=lambda c: (c.split()[0], int(
+            c.split()[1][2:]), int(c.split()[2][2:])))))
+
     per_n = {}
-    for n in (1, 4, 16, 256, 1024):
-        for b in (1, 32):
-            for dtype, atol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
-                q, k, v = (torch.randn((b, h, n, d), generator=gen, device="cuda").to(dtype) for _ in range(3))
-                o = at.flash_mha(q, k, v)
-                torch.cuda.synchronize()
-                ref = at.attention_plain(q.float(), k.float(), v.float())
-                e = (o.float() - ref).abs().max().item()
-                if not e <= atol:
-                    fail(f"attention N={n} B={b} {dtype}: max abs err {e} > {atol}")
-                key = "f32" if dtype == torch.float32 else "bf16"
-                err[key] = max(err[key], e)
-        q, k, v = (torch.randn((32, h, n, d), generator=gen, device="cuda").to(torch.bfloat16) for _ in range(3))
-        bound, bound_by = attn_bound(q)
+    for n in ATTN_TIME_N:
+        q, k, v = heads(32, n, 8, torch.bfloat16)
+        bound, bound_by = attn_bound(tuple(q.shape), q.element_size(), exp_per_s)
         per_n[n] = {
+            "route": at.attention_plan(n, 8, q.dtype).route,
             "ms": cuda_time_ms(lambda: at.flash_mha(q, k, v), 50),
             "graph_ms": graph_time_ms(lambda: [at.flash_mha(q, k, v) for _ in range(10)], 10) / 10,
-            "plain_ms": cuda_time_ms(lambda: at.attention_plain(q, k, v), 50),
+            "plain_ms": cuda_time_ms(lambda: at.attention_plain(q, k, v), 20),
             "library_ms": cuda_time_ms(lambda: F.scaled_dot_product_attention(q, k, v), 50),
             "library_graph_ms": graph_time_ms(lambda: [F.scaled_dot_product_attention(q, k, v)
                                                        for _ in range(10)], 10) / 10,
             "bound_ms": bound, "bound_by": bound_by,
         }
-    print(f"[attn] ok: 20 checks; max abs err f32 {err['f32']:.3g}, bf16 {err['bf16']:.3g}")
-    print("[attn] per call b32 bf16 h64 d8, ms (kernel events / graph, plain, SDPA events / graph, bound): "
-          + "; ".join(f"N={n}: {t['ms']:.4f}/{t['graph_ms']:.4f}, {t['plain_ms']:.4f}, "
-                      f"{t['library_ms']:.4f}/{t['library_graph_ms']:.4f}, {t['bound_ms']:.6f} ({t['bound_by']})"
-                      for n, t in per_n.items()) + f"  [{card}]")
+        if n == max(ATTN_TIME_N):  # the clock the exp bound assumes (its maximum) against the clock under load
+            per_n[n]["sm_mhz"] = sm_clock_during(lambda: graph_time_ms(lambda: [at.flash_mha(q, k, v)
+                                                                               for _ in range(10)], 60))
+        del q, k, v
+    n_max = max(ATTN_TIME_N)
+    bound_mhz = exp_per_s / EXP_PER_CLOCK_PER_SM / torch.cuda.get_device_properties(0).multi_processor_count / 1e6
+    print(f"[attn] SM clock during the N={n_max} kernel: {per_n[n_max]['sm_mhz']:.0f} MHz (median of nvidia-smi "
+          f"samples); the exp bound assumes {bound_mhz:.0f} MHz  [{card}]")
+    print("[attn] per call b32 bf16 h64 d8 (strided views), ms (route: kernel events / graph, plain, "
+          "SDPA events / graph, bound (bound_by), bound share of the graph time): "
+          + "; ".join(f"N={n} ({t['route']}): {t['ms']:.4f}/{t['graph_ms']:.4f}, {t['plain_ms']:.4f}, "
+                      f"{t['library_ms']:.4f}/{t['library_graph_ms']:.4f}, {t['bound_ms']:.6f} ({t['bound_by']}), "
+                      f"{100 * t['bound_ms'] / t['graph_ms']:.1f}%"
+                      for n, t in per_n.items())
+          + f"; exp rate {exp_per_s:.4g}/s  [{card}]")
     # One UNet forward of the slice: 5 calls at N=4 (2x2) and 1 at N=1 (mid).
     per_forward = {key: 5 * per_n[4][key] + per_n[1][key]
                    for key in ("ms", "graph_ms", "plain_ms", "library_ms", "library_graph_ms", "bound_ms")}
     per_forward["bound_by"] = per_n[4]["bound_by"]
+    print("[attn] per UNet forward (5 x N=4 + N=1, b32 bf16), ms: "
+          + ", ".join(f"{key} {per_forward[key]:.4f}" for key in ("ms", "graph_ms", "plain_ms", "library_ms",
+                                                                 "library_graph_ms", "bound_ms"))
+          + f"  [{card}]")
     return err, per_forward
+
+
+def phase_attention_sweep(card: str):
+    """The mma route's CTA size: each choice of warps per CTA (the plan takes
+    attention.MMA_WARPS by N) checked against the plain version and timed at
+    the pixel UNets' N=256 and N=1024 (b32 bf16 h64 d8, graph-replayed)."""
+    import torch
+
+    from audio_diffusion_torch.ops import attention as at
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    saved = (at.MMA_WARPS, dict(at._PLANS))
+    timed = {n: [torch.randn((32, n, 64, 8), generator=gen, device="cuda").to(torch.bfloat16).transpose(1, 2)
+                 for _ in range(3)] for n in (256, 1024)}
+    rows = []
+    try:
+        for warps in (2, 4, 8):
+            at.MMA_WARPS = (warps, warps)
+            at._PLANS.clear()
+            for n in (17, 1000, ATTN_STREAM_N):
+                q, k, v = (torch.randn((2, 64, n, 8), generator=gen, device="cuda").to(torch.bfloat16)
+                           for _ in range(3))
+                o = at.flash_mha(q, k, v)
+                ref = at.attention_plain(q.float(), k.float(), v.float())
+                slack = 2.0 ** -8 * v.float().abs().max().item() + bf16_ulp(ref)
+                if not bool(((o.float() - ref).abs() <= slack).all()):
+                    fail(f"attention sweep, {warps} warps, N={n}: error beyond 2^-8 max|v| + 1 ulp")
+                del q, k, v, o, ref
+            rows.append((warps, *(graph_time_ms(lambda: [at.flash_mha(*qkv) for _ in range(10)], 5) / 10
+                                  for qkv in timed.values())))
+    finally:
+        at.MMA_WARPS = saved[0]
+        at._PLANS.clear()
+        at._PLANS.update(saved[1])
+    print("[attn-sweep] mma route, b32 bf16 h64 d8, graph-replayed ms by warps per CTA (N=256, N=1024): "
+          + "; ".join(f"{w}: {a:.4f}, {c:.4f}" for w, a, c in rows)
+          + f"; the plan takes {saved[0][0]} at N <= {at.MMA_WARPS_SPLIT_N}, else {saved[0][1]}  [{card}]")
 
 
 def build_pipeline():
@@ -415,11 +553,15 @@ def phase_profile(pipe, card: str):
     for e in sorted(events, key=dev_us, reverse=True)[:12]:
         print(f"  {dev_us(e) / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
     ours = []
-    for name in ("gn_silu_warp_kernel", "gn_silu_cta_kernel", "mha_fwd_kernel"):
+    for name in ("gn_silu_warp_kernel", "gn_silu_cta_kernel", "mha_small_kernel", "mha_mma_kernel",
+                 "mha_simt_kernel"):
         hits = [e for e in events if name in e.key]
         ms = sum(dev_us(e) for e in hits) / 1e3
         ours.append(f"{name} {ms:.3f} ms / {sum(e.count for e in hits)}x ({ms / STEPS:.4f} ms per UNet forward)")
     print("[profile] this repo's kernels, device time in that request: " + "; ".join(ours))
+    copies = [e for e in prof.key_averages() if e.key == "aten::copy_"]
+    print(f"[profile] aten::copy_ in that request: {sum(e.count for e in copies)} calls, "
+          f"{sum(dev_us(e) for e in copies) / 1e3:.3f} ms device time  [{card}]")
 
 
 def phase_unet_reference():
@@ -506,6 +648,7 @@ def main() -> int:
     cfg = unconditional_config(sample_size=(32, 32), dtype="bfloat16", fused_groupnorm=True)
     gn_err, gn_t = phase_groupnorm(cfg, card)
     at_err, at_t = phase_attention(card)
+    phase_attention_sweep(card)
     phase_unet_reference()
     t0 = time.perf_counter()
     pipe = build_pipeline()

@@ -100,6 +100,9 @@ def test_cuda_wrappers_refuse_what_the_kernels_cannot_take():
     q = torch.randn(1, 4, 16, 24, device="cuda")
     with pytest.raises(ValueError, match="head dim"):
         at.flash_mha(q, q, q)
+    q = torch.randn(1, 4, 8, 16, device="cuda").transpose(2, 3)  # (1, 4, 16, 8), last stride 16
+    with pytest.raises(ValueError, match="stride"):
+        at.flash_mha(q, q, q)
 
 
 @pytest.mark.cuda
@@ -187,3 +190,103 @@ def test_graph_capture_replays_the_same_output():
     torch.cuda.synchronize()
     for out, want in zip(outs, eager):
         torch.testing.assert_close(out, want, rtol=0, atol=0)
+
+
+# Attention: (N, d) per case; the routes follow from attention.attention_plan.
+# N=17, 255 and 1000 are ragged against the 16-row query tiles and 64-key
+# blocks; N=2100 streams K and V through the mma route's two buffers.
+ATTN_CASES = [(1, 8), (4, 8), (16, 8), (17, 8), (255, 8), (256, 8), (1000, 8), (2100, 8), (4, 32), (17, 32),
+              (256, 128)]
+
+
+def _heads(b, n, d, dtype, seed=0):
+    """q, k, v as the UNet passes them: (B, N, heads, d) projections seen as (B, heads, N, d)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn((b, n, 4, d), generator=g, device="cuda").to(dtype).transpose(1, 2) for _ in range(3)]
+
+
+def _assert_attention_close(o, q, k, v):
+    """f32 within 1e-5 * max|o|. bf16: the mma route rounds P to bf16 before
+    P V, as reference_attention does (up to 2^-8 max|v|), then the result
+    rounds once to bf16 (one ulp)."""
+    ref = at.attention_plain(q.float(), k.float(), v.float())
+    d = (o.float() - ref).abs()
+    if o.dtype == torch.float32:
+        assert d.max().item() <= 1e-5 * ref.abs().max().item()
+    else:
+        _, e = torch.frexp(ref.abs().clamp(min=torch.finfo(torch.float32).tiny))
+        ulp = torch.ldexp(torch.ones_like(ref), e - 8)  # bf16 keeps 8 significant bits
+        assert bool((d <= 2.0 ** -8 * v.float().abs().max().item() + ulp).all())
+
+
+def test_attention_cases_cover_every_route():
+    routes = {at.attention_plan(n, d, dtype).route for n, d in ATTN_CASES for dtype in (torch.float32, torch.bfloat16)}
+    assert routes == {"small", "mma", "simt"}
+    plan = at.attention_plan(2100, 8, torch.bfloat16)
+    assert plan.route == "mma" and plan.chunk < 2100
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n, d", ATTN_CASES)
+def test_attention_every_route_matches_plain(n, d, dtype):
+    _cuda()
+    q, k, v = _heads(1 if n > 1024 else 2, n, d, dtype)
+    o = at.flash_mha(q, k, v)
+    torch.cuda.synchronize()
+    assert o.shape == q.shape and o.dtype == dtype
+    _assert_attention_close(o, q, k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_one_key_gives_v(dtype):
+    _cuda()
+    q, k, v = _heads(3, 1, 8, dtype)
+    assert torch.equal(at.flash_mha(q, k, v), v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [4, 17, 256, 2100])
+def test_attention_strided_and_unaligned_inputs_give_the_same_bits(n, dtype):
+    _cuda()
+    q, k, v = _heads(1, n, 8, dtype, seed=4)
+    assert not q.is_contiguous()
+    o = at.flash_mha(q, k, v)
+    assert torch.equal(at.flash_mha(q.contiguous(), k.contiguous(), v.contiguous()), o)
+    shifted = []
+    for t in (q, k, v):  # one element past a 16-byte boundary: scalar loads
+        flat = torch.empty(t.numel() + 1, dtype=dtype, device="cuda")
+        s = flat[1:].view(t.shape)
+        s.copy_(t)
+        shifted.append(s)
+    assert shifted[0].data_ptr() % 16
+    assert torch.equal(at.flash_mha(*shifted), o)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [4, 16, 256, 1000])
+def test_attention_row_is_bitwise_the_same_alone_and_in_batch_32(n, dtype):
+    _cuda()
+    q, k, v = _heads(32, n, 8, dtype, seed=5)
+    assert torch.equal(at.flash_mha(q[:1], k[:1], v[:1]), at.flash_mha(q, k, v)[:1])
+
+
+@pytest.mark.cuda
+def test_attention_is_one_launch_and_replays_from_a_graph():
+    _cuda()
+    cases = [_heads(2, n, 8, dtype, seed=6) for n in (4, 256) for dtype in (torch.float32, torch.bfloat16)]
+    before = at.flash_mha.launches
+    eager = [at.flash_mha(*qkv) for qkv in cases]
+    assert at.flash_mha.launches == before + len(cases)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [at.flash_mha(*qkv) for qkv in cases]
+    for out in outs:
+        out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    for out, want in zip(outs, eager):
+        assert torch.equal(out, want)
