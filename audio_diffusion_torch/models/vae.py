@@ -51,12 +51,20 @@ class VAEConfig(ConfigMixin):
 
 class DiagonalGaussian:
     """Latent distribution returned by ``encode`` (diffusers
-    ``DiagonalGaussianDistribution``, logvar clamped to [-30, 20]). NHWC.
-    Sampling waits for the audio-input paths (ROADMAP Queue 1 item 8)."""
+    ``DiagonalGaussianDistribution``, logvar clamped to [-30, 20]). NHWC."""
 
     def __init__(self, mean: torch.Tensor, logvar: torch.Tensor):
         self.mean = mean
         self.logvar = torch.clamp(logvar, -30.0, 20.0)
+        self.std = torch.exp(0.5 * self.logvar)
+
+    def sample(self, generator: torch.Generator | None = None, eps: torch.Tensor | None = None) -> torch.Tensor:
+        """mean + std * eps, with eps a standard normal draw like ``mean`` from
+        ``generator`` unless handed in (how tests give both packages one draw)."""
+        if eps is None:
+            device = generator.device if generator is not None else self.mean.device
+            eps = torch.randn(self.mean.shape, generator=generator, device=device, dtype=self.mean.dtype)
+        return self.mean + self.std * eps.to(device=self.mean.device, dtype=self.mean.dtype)
 
     def mode(self) -> torch.Tensor:
         return self.mean

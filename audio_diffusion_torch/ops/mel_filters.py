@@ -67,12 +67,25 @@ def mel_filterbank(
     return weights.astype(np.float32)
 
 
-def power_to_db(S: torch.Tensor, top_db: float = 80.0) -> torch.Tensor:
-    """librosa ``power_to_db(S, ref=np.max, top_db)`` over the trailing 2 axes:
-    relative to each spectrogram's maximum, so the output peaks at 0 dB and
-    floors at ``-top_db`` (the JAX package's ``ref=None``)."""
+def power_to_db(S: torch.Tensor, top_db: float = 80.0, ref=None) -> torch.Tensor:
+    """librosa ``power_to_db(S, ref, top_db)`` over the trailing 2 axes.
+
+    ``ref=None`` means ``ref=np.max``: relative to each spectrogram's
+    maximum, so the output peaks at 0 dB and floors at ``-top_db``. A scalar
+    shifts by ``10*log10(|ref|)``. A callable is applied to each
+    spectrogram's power matrix, handed to it as a numpy array on the host as
+    librosa does, and ``|ref(S)|`` is the reference; the result floors at
+    ``max - top_db`` in every case."""
     log_spec = 10.0 * torch.log10(torch.clamp(S, min=AMIN))
-    log_spec = log_spec - torch.amax(log_spec, dim=(-2, -1), keepdim=True)
+    if ref is None:
+        ref_db = torch.amax(log_spec, dim=(-2, -1), keepdim=True)
+    elif callable(ref):
+        flat = S.detach().reshape((-1,) + tuple(S.shape[-2:])).cpu().numpy()
+        ref_val = torch.tensor([float(np.abs(ref(s))) for s in flat], dtype=torch.float32, device=S.device)
+        ref_db = 10.0 * torch.log10(torch.clamp(ref_val.reshape(S.shape[:-2] + (1, 1)), min=AMIN))
+    else:
+        ref_db = 10.0 * torch.log10(torch.clamp(torch.tensor(abs(float(ref)), dtype=torch.float32), min=AMIN))
+    log_spec = log_spec - ref_db.to(log_spec.device)
     peak = torch.amax(log_spec, dim=(-2, -1), keepdim=True)
     return torch.maximum(log_spec, peak - top_db)
 

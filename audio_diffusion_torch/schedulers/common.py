@@ -8,24 +8,74 @@ per-step scalars are f32, as in the JAX package.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+import math
+from typing import Iterator, NamedTuple, Sequence, Union
 
 import numpy as np
 import torch
 
 from ..utils.config import ConfigMixin
 
+# A row's whole chain of step noise is drawn in one call when it takes at most
+# this many bytes (latent-256 at 50 steps: 200 KiB; pixel-256 DDPM at 1000
+# steps: 256 MiB, so that one draws step by step).
+ROW_CHAIN_BYTES = 16 << 20
 
-def variance_noise(sample: torch.Tensor, generator: torch.Generator | None = None,
+StepGenerator = Union[torch.Generator, Sequence[torch.Generator], None]
+
+
+def variance_noise(sample: torch.Tensor, generator: StepGenerator = None,
                    noise: torch.Tensor | None = None) -> torch.Tensor:
-    """Per-step sampling noise for stochastic steps (DDIM eta > 0): ``noise``
-    when injected (how tests hand both packages one draw), else a standard
-    normal draw like ``sample`` from ``generator``. torch cannot reproduce
+    """Per-step sampling noise for stochastic steps (DDPM, DDIM eta > 0).
+
+    ``noise`` when injected (how tests hand both packages one draw). Else
+    ``generator``: one ``torch.Generator`` draws one batch-shaped tensor, so
+    row i depends on the batch layout like the reference's shared
+    ``step_generator``; a sequence of B generators draws each row from its
+    own, so a row's noise is the same alone or in any batch (the JAX
+    package's per-row keys, common.py:25-54). torch cannot reproduce
     ``jax.random``, so only injected noise matches the JAX package."""
     if noise is not None:
         return noise.to(device=sample.device, dtype=sample.dtype)
-    device = generator.device if generator is not None else sample.device
-    return torch.randn(sample.shape, generator=generator, device=device, dtype=sample.dtype).to(sample.device)
+    return _randn(tuple(sample.shape), sample.device, generator).to(sample.dtype)
+
+
+def _randn(shape: tuple, device: torch.device, generator: StepGenerator) -> torch.Tensor:
+    """A standard normal f32 draw of ``shape`` on ``device``: from one
+    generator, or row i from the i-th of a sequence of per-row generators."""
+    if isinstance(generator, (list, tuple)):
+        if len(generator) != shape[0]:
+            raise ValueError(f"{len(generator)} per-row generators for a batch of {shape[0]}")
+        return torch.stack([torch.randn(shape[1:], generator=g, device=g.device).to(device) for g in generator])
+    gen_device = generator.device if generator is not None else device
+    return torch.randn(shape, generator=generator, device=gen_device).to(device)
+
+
+def step_noises(shape: tuple, steps: int, device: torch.device, generator: StepGenerator = None,
+                noise: torch.Tensor | None = None) -> Iterator[torch.Tensor]:
+    """The variance noise of each of ``steps`` stochastic steps, (B, ...) = ``shape`` each.
+
+    ``noise`` (steps, B, ...) yields its slices. One generator draws each
+    step's batch when the step comes (the reference's order). A sequence of
+    B per-row generators draws row i only from generator i, so the result is
+    independent of the co-batch; to keep the launches at B per request, not
+    B per step, a row whose whole chain fits ``ROW_CHAIN_BYTES`` is drawn at
+    once as (steps, ...), else step by step. The choice depends on the row's
+    shape and the step count only, never on the batch."""
+    if noise is not None:
+        noise = torch.as_tensor(noise)
+        if noise.shape[0] < steps or tuple(noise.shape[1:]) != tuple(shape):
+            raise ValueError(f"step_noise must be ({steps}, {', '.join(map(str, shape))}), "
+                             f"got {tuple(noise.shape)}")
+        for i in range(steps):
+            yield noise[i].to(device=device, dtype=torch.float32)
+        return
+    if isinstance(generator, (list, tuple)) and steps * math.prod(shape[1:]) * 4 <= ROW_CHAIN_BYTES:
+        chains = _randn((shape[0], steps, *shape[1:]), device, generator)  # row i: (steps, ...) from generator i
+        yield from chains.transpose(0, 1)
+        return
+    for _ in range(steps):
+        yield _randn(tuple(shape), device, generator)
 
 
 def make_betas(num_train_timesteps: int, beta_start: float, beta_end: float, beta_schedule: str) -> np.ndarray:
@@ -70,6 +120,15 @@ class SchedulerConfig(ConfigMixin):
     steps_offset: int = 0
 
     config_name = "scheduler_config.json"
+
+
+def add_noise(alphas_cumprod: np.ndarray, sample: torch.Tensor, noise: torch.Tensor, t) -> torch.Tensor:
+    """Forward process: sqrt(a_t) * sample + sqrt(1 - a_t) * noise, with
+    ``a_t = alphas_cumprod[t]`` for an int or a (B,) tensor ``t``."""
+    a = torch.as_tensor(alphas_cumprod, device=sample.device)[torch.as_tensor(t, device=sample.device)]
+    while a.dim() < sample.dim():
+        a = a[..., None]
+    return torch.sqrt(a) * sample + torch.sqrt(1.0 - a) * noise
 
 
 def predict_x0_and_eps(sample: torch.Tensor, model_output: torch.Tensor, alpha_prod_t: np.float32,

@@ -14,7 +14,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from .common import Schedule, SchedulerConfig, leading_timesteps, make_betas, predict_x0_and_eps, variance_noise
+from .common import (Schedule, SchedulerConfig, StepGenerator, add_noise, leading_timesteps, make_betas,
+                     predict_x0_and_eps, variance_noise)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,20 +43,17 @@ class DDIMScheduler:
         return 50
 
     def add_noise(self, sample: torch.Tensor, noise: torch.Tensor, t) -> torch.Tensor:
-        """sqrt(a_t) * sample + sqrt(1 - a_t) * noise; ``t`` an int or a (B,) tensor."""
-        a = torch.as_tensor(self.alphas_cumprod, device=sample.device)[torch.as_tensor(t, device=sample.device)]
-        while a.dim() < sample.dim():
-            a = a[..., None]
-        return torch.sqrt(a) * sample + torch.sqrt(1.0 - a) * noise
+        return add_noise(self.alphas_cumprod, sample, noise, t)
 
     def _alpha_prev(self, prev_t: int) -> np.float32:
         return self.alphas_cumprod[prev_t] if prev_t >= 0 else self.final_alpha_cumprod
 
     def step(self, model_output: torch.Tensor, t: int, sample: torch.Tensor, schedule: Schedule,
-             eta: float = 0.0, generator: torch.Generator | None = None,
+             eta: float = 0.0, generator: StepGenerator = None,
              noise: torch.Tensor | None = None) -> torch.Tensor:
         """One deterministic (eta=0) or stochastic DDIM step x_t -> x_{t_prev}.
-        For eta > 0 the variance noise is ``noise`` or a draw from ``generator``."""
+        For eta > 0 the variance noise is ``noise`` or a draw from
+        ``generator`` (one, or one per row: see :func:`.common.variance_noise`)."""
         cfg = self.config
         t = int(t)
         one = np.float32(1.0)
@@ -74,3 +72,16 @@ class DDIMScheduler:
         if eta > 0:
             prev_sample = prev_sample + float(std_dev) * variance_noise(sample, generator, noise)
         return prev_sample
+
+    def invert_step(self, model_output: torch.Tensor, t: int, sample: torch.Tensor,
+                    schedule: Schedule) -> torch.Tensor:
+        """Closed-form reverse of the deterministic step (ddim.py:108-126):
+        undo step t, then re-noise to t."""
+        t = int(t)
+        one = np.float32(1.0)
+        alpha_prod_t = self.alphas_cumprod[t]
+        alpha_prod_prev = self._alpha_prev(t - schedule.step_delta)
+        beta_prod_t = one - alpha_prod_t
+        direction = float(np.sqrt(one - alpha_prod_prev)) * model_output
+        x0 = (sample - direction) / float(np.sqrt(alpha_prod_prev))
+        return float(np.sqrt(alpha_prod_t)) * x0 + float(np.sqrt(beta_prod_t)) * model_output

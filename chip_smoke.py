@@ -27,7 +27,16 @@ Phases, one line each (plus detail lines):
              50 DDIM steps through ``AudioDiffusionPipeline.__call__``; the
              kernels' launch counters must show the path went through them
   5. fidelity  Griffin-Lim round trip and bf16-vs-f32 VAE round trip gates
-Then one JSON line with each kernel's launches, error and times, the card's
+  6. serve   the same pipeline saved with ``save_pretrained`` (diffusers
+             layout), loaded through ``serving.make_server`` (bf16, fused
+             GroupNorm, tiers up to 8) and asked over HTTP by concurrent
+             clients: 16 generations, 4 audio-to-audio at start_step 25 and 4
+             at eta 0.5, all at 50 steps; every response a 200 with a full
+             wav; 64 GroupNorm+SiLU and 6 attention launches per denoise step
+             of every served batch; wav and json PCM identical; a seed bitwise
+             the same with other companions in its tier; /healthz figures
+Then one JSON line with each kernel's launches (``launches``: the [main]
+requests; ``serve_launches``: the [serve] traffic), error and times, the card's
 name and power limit as nvidia-smi prints them, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without a CUDA device it exits non-zero at once and prints no result.
@@ -60,6 +69,10 @@ H100_EXP_PER_S = EXP_PER_CLOCK_PER_SM * 132 * 1.98e9
 ATTN_CHECK_N = (1, 4, 16, 17, 64, 255, 256, 1000, 1024)
 ATTN_STREAM_N = 2100  # above attention.MMA_RESIDENT_KEYS: K and V stream through two buffers
 ATTN_TIME_N = (1, 4, 16, 256, 1024)
+SERVE_TIER = 8  # the server's largest batch tier
+SERVE_ETA = 0.5
+SERVE_START_STEP = 25
+SERVE_REQUESTS = {"generate": 16, "audio_to_audio": 4, "eta": 4}
 
 
 def fail(msg: str) -> None:
@@ -504,6 +517,249 @@ def phase_main(pipe, card: str):
     return launches
 
 
+def _http(host: str, port: int, method: str, path: str, body=None):
+    import http.client
+
+    conn = http.client.HTTPConnection(host, port, timeout=600)
+    try:
+        conn.request(method, path, None if body is None else json.dumps(body), {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, resp.getheader("Content-Type"), resp.read()
+    finally:
+        conn.close()
+
+
+def _concurrently(host: str, port: int, bodies: list) -> list:
+    """POST every body to /generate at once, one thread each; responses in order."""
+    import threading
+
+    out = [None] * len(bodies)
+
+    def post(i):
+        out[i] = _http(host, port, "POST", "/generate", bodies[i])
+
+    threads = [threading.Thread(target=post, args=(i,)) for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+        if t.is_alive():
+            fail("[serve] a request did not finish within 900 s")
+    for i, (status, _, data) in enumerate(out):
+        if status != 200:
+            fail(f"[serve] request {bodies[i].get('seed')} answered {status}: {data[:300]!r}")
+    return out
+
+
+def step_noise_ms(batch: int, hw, reps: int = 5) -> dict:
+    """Host wall (ms, with a synchronize) to draw the variance noise of a
+    ``STEPS``-step request from ``batch`` per-row generators: each row's whole
+    chain at once (``step_noises`` under ``ROW_CHAIN_BYTES``), and step by
+    step (the budget set to 0)."""
+    import torch
+
+    from audio_diffusion_torch.schedulers import common
+
+    shape = (batch, *hw, 1)
+    saved = common.ROW_CHAIN_BYTES
+    out = {}
+    try:
+        for name, budget in (("chain", saved), ("per_step", 0)):
+            common.ROW_CHAIN_BYTES = budget
+            best = float("inf")
+            for _ in range(reps):
+                gens = [torch.Generator(device="cuda").manual_seed(s) for s in range(batch)]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in common.step_noises(shape, STEPS, torch.device("cuda"), gens):
+                    pass
+                torch.cuda.synchronize()
+                best = min(best, (time.perf_counter() - t0) * 1e3)
+            out[name] = best
+    finally:
+        common.ROW_CHAIN_BYTES = saved
+    return out
+
+
+def cross_tier_drift(pipe, seed: int, tier: int) -> dict:
+    """Where one row's result departs between batch 1 and batch ``tier``
+    (the row's noise the same, the rest other seeds): max abs difference of
+    one UNet forward at the first timestep, of the latents after ``STEPS``
+    DDIM steps, and of the uint8 spectrograms, in the pipeline's bf16 and in
+    f32 (TF32 off), with that max relative to the max |value|."""
+    import numpy as np
+    import torch
+
+    from audio_diffusion_torch.models import AutoencoderKL, UNet2D
+    from audio_diffusion_torch.pipelines.pipeline import LATENT_SCALE, postprocess_images
+    from audio_diffusion_torch.serving.batcher import _noise_for_seed
+
+    h, w = pipe.sample_hw
+    dev = pipe.device
+    x = torch.from_numpy(np.stack([_noise_for_seed(seed + i, h, w, 1) for i in range(tier)])).to(dev)
+    schedule = pipe.scheduler.schedule(STEPS)
+    out = {}
+    for name in ("bf16", "f32"):
+        unet, vae = pipe.unet, pipe.vqvae
+        if name == "f32":
+            unet = UNet2D(dataclasses.replace(unet.config, dtype="float32")).to(dev).eval()
+            unet.load_state_dict(pipe.unet.state_dict())
+            vae = AutoencoderKL(dataclasses.replace(vae.config, dtype="float32")).to(dev).eval()
+            vae.load_state_dict(pipe.vqvae.state_dict())
+        rows = {}
+        with torch.inference_mode():
+            for b in (1, tier):
+                z = x[:b].contiguous()
+                for i, t in enumerate(schedule.timesteps):
+                    eps = unet(z, torch.full((b,), int(t), device=dev))
+                    if i == 0:
+                        first = eps[:1].clone()
+                    z = pipe.scheduler.step(eps, int(t), z, schedule)
+                rows[b] = (first, z[:1].clone(), postprocess_images(vae.decode(z / LATENT_SCALE))[:1].int())
+        for i, what in enumerate(("first forward", "latents", "uint8")):
+            a, b = rows[1][i].float(), rows[tier][i].float()
+            d = (a - b).abs().max().item()
+            out[f"{name} {what}"] = (d, d / max(b.abs().max().item(), 1e-30))
+        del unet, vae
+    return out
+
+
+def phase_serve(pipe, card: str):
+    """Save the full-width pipeline in the diffusers layout, load it through
+    ``make_server`` (bf16, fused GroupNorm) and answer concurrent HTTP
+    requests: pure generation, audio-to-audio at start_step 25 and eta > 0,
+    all at 50 steps. The kernels' counters must show every served batch went
+    through both kernels."""
+    import base64
+    import io
+    import tempfile
+    import wave
+
+    import numpy as np
+    import torch
+
+    from audio_diffusion_torch.ops import attention as at
+    from audio_diffusion_torch.ops import fused_groupnorm as gn
+    from audio_diffusion_torch.serving import make_server
+
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        pipe.save_pretrained(d)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        server = make_server(d, dtype="bfloat16", fused_groupnorm=True, device="cuda", port=0, max_batch=SERVE_TIER,
+                             max_wait_ms=1000, steps=STEPS, allowed_etas=[SERVE_ETA],
+                             allowed_start_steps=[SERVE_START_STEP])
+        t_load = time.perf_counter() - t0
+    served = server.batcher.pipe
+    for a, b in ((served.unet, pipe.unet), (served.vqvae, pipe.vqvae)):
+        if a.config != b.config:
+            fail(f"[serve] loaded config {a.config} differs from the saved {b.config}")
+        sa, sb = a.state_dict(), b.state_dict()
+        if sa.keys() != sb.keys() or not all(torch.equal(sa[k], sb[k]) for k in sa):
+            fail(f"[serve] the loaded {type(a).__name__} weights differ from the saved ones")
+    t0 = time.perf_counter()
+    server.batcher.warmup()
+    t_warm = time.perf_counter() - t0
+    print(f"[serve] saved the pipeline in {t_save:.2f} s, loaded it through make_server in {t_load:.2f} s (weights "
+          f"and configs equal), warmed tiers {server.batcher.tiers} x eta {{0, {SERVE_ETA}}} x start_step "
+          f"{{0, {SERVE_START_STEP}}} in {t_warm:.2f} s  [{card}]")
+
+    mel = served.mel
+    tt = np.arange(mel.x_res * mel.hop_length) / mel.get_sample_rate()
+    clip = sum(np.sin(2 * np.pi * f * tt) * a for f, a in ((196.0, 0.4), (392.0, 0.3), (1318.5, 0.2)))
+    clip_b64 = base64.b64encode((clip * 32767 / np.abs(clip).max()).astype(np.int16).tobytes()).decode()
+    n_frames = (mel.x_res - 1) * mel.hop_length
+    server.start()
+    host, port = server.address[:2]
+    counters = (gn.group_norm_silu, at.flash_mha)
+    try:
+        bodies = ([{"seed": 100 + i} for i in range(SERVE_REQUESTS["generate"])]
+                  + [{"seed": 200 + i, "start_step": SERVE_START_STEP, "audio_pcm16_base64": clip_b64}
+                     for i in range(SERVE_REQUESTS["audio_to_audio"])]
+                  + [{"seed": 300 + i, "eta": SERVE_ETA} for i in range(SERVE_REQUESTS["eta"])])
+        n_stats = len(server.batcher.stats)
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        responses = _concurrently(host, port, bodies)
+        wall = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in counters}
+        batches = list(server.batcher.stats)[n_stats:]
+        denoise_steps = sum(s["steps"] for s in batches)
+        want = {"group_norm_silu": 64 * denoise_steps, "flash_mha": 6 * denoise_steps}
+        if launches != want:
+            fail(f"[serve] launches {launches} over {len(batches)} batches of {denoise_steps} denoise steps in all; "
+                 f"expected {want}")
+        for body, (_, ctype, data) in zip(bodies, responses):
+            if ctype != "audio/wav":
+                fail(f"[serve] seed {body['seed']}: content type {ctype}")
+            with wave.open(io.BytesIO(data)) as w:
+                pcm = np.frombuffer(w.readframes(w.getnframes()), dtype=np.int16)
+                if w.getframerate() != mel.get_sample_rate() or len(pcm) != n_frames:
+                    fail(f"[serve] seed {body['seed']}: wav of {len(pcm)} frames at {w.getframerate()} Hz")
+            if not np.abs(pcm.astype(np.int32)).max() > 1000:
+                fail(f"[serve] seed {body['seed']}: silent or degenerate audio")
+        print(f"[serve] {len(bodies)} concurrent requests over HTTP ({SERVE_REQUESTS}) in {wall:.4f} s: "
+              f"{len(bodies) / wall:.4f} requests/s; {len(batches)} batches (n/tier/denoise steps "
+              f"{[(s['n'], s['tier'], s['steps']) for s in batches]}); launches {launches} = 64 and 6 per denoise "
+              f"step of every batch; all 200 with {n_frames}-frame wavs  [{card}]")
+
+        # The same seed as wav and as json, each alone: the same int16 samples.
+        _, _, wav_data = _concurrently(host, port, [{"seed": 7}])[0]
+        _, _, json_data = _concurrently(host, port, [{"seed": 7, "format": "json"}])[0]
+        with wave.open(io.BytesIO(wav_data)) as w:
+            if w.readframes(w.getnframes()) != base64.b64decode(json.loads(json_data)["pcm16_base64"]):
+                fail("[serve] the wav and json deliveries of seed 7 carry different samples")
+
+        # A seed re-sent into a batch of the same tier with other companions.
+        def images(bodies, tier):
+            n0 = len(server.batcher.stats)
+            out = [np.asarray(json.loads(data)["image"], dtype=np.uint8)
+                   for _, _, data in _concurrently(host, port, [dict(b, format="json") for b in bodies])]
+            got = [(s["n"], s["tier"]) for s in list(server.batcher.stats)[n0:]]
+            if got != [(len(bodies), tier)]:
+                fail(f"[serve] expected one batch of {len(bodies)} at tier {tier}, the batcher ran {got}")
+            return out
+
+        same_tier = {}
+        for name, tier, extra in (("eta 0", SERVE_TIER, {}), (f"eta {SERVE_ETA}", 4, {"eta": SERVE_ETA})):
+            first = images([dict(extra, seed=1000 + i) for i in range(tier)], tier)
+            second = images([dict(extra, seed=1000)] + [dict(extra, seed=2000 + i) for i in range(1, tier)], tier)
+            if not np.array_equal(first[0], second[0]):
+                fail(f"[serve] {name}: seed 1000 gave another spectrogram at tier {tier} with other companions "
+                     f"(max diff {np.abs(first[0].astype(int) - second[0].astype(int)).max()})")
+            same_tier[name] = first[0]
+        solo = images([{"seed": 1000}], 1)[0]
+        cross = np.abs(solo.astype(np.int32) - same_tier["eta 0"].astype(np.int32))
+        print(f"[serve] ok: wav and json PCM identical; seed 1000 bitwise the same spectrogram with other companions "
+              f"at tier {SERVE_TIER} (eta 0) and tier 4 (eta {SERVE_ETA}); across tiers 1 and {SERVE_TIER} (not "
+              f"asserted: cuDNN may choose other algorithms per batch shape) max uint8 diff {cross.max()}, mean "
+              f"{cross.mean():.4f}, {100 * (cross > 0).mean():.2f}% of pixels differ  [{card}]")
+        drift = cross_tier_drift(served, 1000, SERVE_TIER)
+        print(f"[serve] row 0 at batch 1 vs batch {SERVE_TIER}, direct calls, max abs diff (relative to max|value|): "
+              + "; ".join(f"{k} {d:.4g} ({r:.3g})" for k, (d, r) in drift.items()) + f"  [{card}]")
+
+        noise_ms = step_noise_ms(32, served.sample_hw)
+        print(f"[serve] per-row step noise of one tier-32 request at {STEPS} steps (host wall with a "
+              f"synchronize): whole chains, 32 draws: {noise_ms['chain']:.4f} ms; step by step, {32 * STEPS} "
+              f"draws: {noise_ms['per_step']:.4f} ms  [{card}]")
+
+        status, _, data = _http(host, port, "GET", "/healthz")
+        health = json.loads(data)
+        if status != 200 or health["status"] != "ok":
+            fail(f"[serve] /healthz answered {status}: {data[:300]!r}")
+        copies = [s["copy_ms"] for s in server.batcher.stats]
+        print(f"[serve] /healthz over the last {health['recent_batches']} batches: mean_batch {health['mean_batch']}, "
+              f"fill {health['fill']}, p50 {health['p50_latency_s']} s, p95 {health['p95_latency_s']} s, mean_run_s "
+              f"{health['mean_run_s']}; the finisher's device-to-host copies on the side stream: mean "
+              f"{health['mean_copy_ms']} ms, {sum(copies):.4f} ms over {len(copies)} batches, none of it waited "
+              f"for by the worker  [{card}]")
+    finally:
+        server.stop()
+    return launches
+
+
 def phase_layers(pipe, card: str):
     """Per-layer device times at batch 32 (CUDA events), for the breakdown."""
     import torch
@@ -658,15 +914,18 @@ def main() -> int:
     phase_layers(pipe, card)
     phase_profile(pipe, card)
     phase_fidelity(pipe, card)
+    serve_launches = phase_serve(pipe, card)
 
     pallas_gn = "audio_diffusion_tpu/ops/pallas_groupnorm.py"
     gn_row = {"name": "group_norm_silu", "route": "cuda", "source": "audio_diffusion_torch/csrc/group_norm_silu.cu",
               "replaces": f"{pallas_gn}:51, {pallas_gn}:66",
               "launches": launches["group_norm_silu"], "launches_per_request": 64 * STEPS,
+              "serve_launches": serve_launches["group_norm_silu"],
               "max_abs_err": gn_err["f32"], "bf16_max_ulps": gn_err["bf16_ulps"]}
     at_row = {"name": "flash_mha", "route": "cuda", "source": "audio_diffusion_torch/csrc/mha.cu",
               "replaces": "audio_diffusion_tpu/ops/pallas_attention.py:55", "launches": launches["flash_mha"],
-              "launches_per_request": 6 * STEPS, "max_abs_err": at_err["f32"]}
+              "launches_per_request": 6 * STEPS, "serve_launches": serve_launches["flash_mha"],
+              "max_abs_err": at_err["f32"]}
     keys = ("ms", "graph_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_graph_ms")
     kernels = [{**gn_row, **{k: gn_t[k] for k in keys}}, {**at_row, **{k: at_t[k] for k in keys}}]
     for k in kernels:

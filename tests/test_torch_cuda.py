@@ -290,3 +290,71 @@ def test_attention_is_one_launch_and_replays_from_a_graph():
     torch.cuda.synchronize()
     for out, want in zip(outs, eager):
         assert torch.equal(out, want)
+
+
+# ------------------------------------------------------------------ serving path
+
+@pytest.mark.cuda
+def test_per_row_step_noise_on_the_card_is_independent_of_the_co_batch():
+    _cuda()
+    from audio_diffusion_torch.schedulers.common import step_noises
+
+    def gens(seeds):
+        return [torch.Generator(device="cuda").manual_seed(s) for s in seeds]
+
+    shape = (3, 32, 32, 1)
+    alone = list(step_noises((1, *shape[1:]), 50, torch.device("cuda"), gens([7])))
+    batched = list(step_noises(shape, 50, torch.device("cuda"), gens([3, 7, 11])))
+    assert all(a.is_cuda and torch.equal(a[0], b[1]) for a, b in zip(alone, batched))
+    assert not torch.equal(batched[0][0], batched[0][1])
+
+
+@pytest.mark.cuda
+def test_side_stream_host_copy_equals_a_synchronous_copy():
+    """The finisher's copy waits for the work queued before it on the current
+    stream and gives what a synchronous .cpu() of the same tensors gives."""
+    _cuda()
+    from audio_diffusion_torch.serving.batcher import copy_to_host_async
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(2048, 2048, generator=g, device="cuda")
+    for _ in range(20):  # long enough that an unordered copy would read stale values
+        x = torch.tanh(x @ x * 1e-3)
+    raw = (x[:32, :256] * 100).to(torch.uint8)
+    pcm = (x[:32] * 30000).to(torch.int16)
+    stream = torch.cuda.Stream()
+    hosts, (start, done) = copy_to_host_async((raw, pcm), stream)
+    assert all(h.is_pinned() for h in hosts)
+    done.synchronize()
+    assert start.elapsed_time(done) >= 0
+    assert torch.equal(hosts[0], raw.cpu()) and torch.equal(hosts[1], pcm.cpu())
+
+
+@pytest.mark.cuda
+def test_from_pretrained_on_the_card_takes_the_kernels(tmp_path):
+    """A port-saved directory loads on the card; fused_groupnorm=True (which
+    the diffusers config does not carry) routes every ResnetBlock2D norm
+    through the GroupNorm+SiLU kernel, and the attention block takes flash_mha."""
+    _cuda()
+    from audio_diffusion_torch.mel import Mel
+    from audio_diffusion_torch.models import UNet2D, UNetConfig
+    from audio_diffusion_torch.models.unet2d import ResnetBlock2D, SelfAttention2D
+    from audio_diffusion_torch.pipelines import AudioDiffusionPipeline
+    from audio_diffusion_torch.schedulers import DDIMScheduler
+
+    cfg = UNetConfig(sample_size=(16, 16), block_out_channels=(32, 64), down_block_types=("DownBlock2D",
+                     "AttnDownBlock2D"), up_block_types=("AttnUpBlock2D", "UpBlock2D"), layers_per_block=1,
+                     norm_num_groups=8)
+    cpu = AudioDiffusionPipeline(UNet2D(cfg).init_params(torch.Generator().manual_seed(0)),
+                                 Mel(x_res=16, y_res=16, device="cpu"), DDIMScheduler(), device="cpu")
+    cpu.save_pretrained(str(tmp_path))
+    n_res = sum(isinstance(m, ResnetBlock2D) for m in cpu.unet.modules())
+    n_attn = sum(isinstance(m, SelfAttention2D) for m in cpu.unet.modules())
+    for fused, want_gn in ((None, 0), (True, 2 * n_res * 2)):  # two norms per resnet, two steps
+        pipe = AudioDiffusionPipeline.from_pretrained(str(tmp_path), fused_groupnorm=fused, device="cuda")
+        before = (gn.group_norm_silu.launches, at.flash_mha.launches)
+        raw, audio = pipe(batch_size=2, steps=2, return_arrays=True, pcm16=True)
+        torch.cuda.synchronize()
+        assert raw.is_cuda and raw.shape == (2, 16, 16) and audio.dtype == torch.int16
+        assert gn.group_norm_silu.launches - before[0] == want_gn
+        assert at.flash_mha.launches - before[1] == n_attn * 2

@@ -1,8 +1,16 @@
-"""Port parity of the generation path: a tiny latent pipeline (Mel 32x32,
-n_iter 4, 3 DDIM steps, batch 2) in both packages on the CPU, fed the same
-noise, weights and Griffin-Lim phase; the DDIM step itself; and that the
-port imports no JAX."""
+"""Port parity of the pipeline: tiny latent and pixel pipelines (Mel 32x32,
+n_iter 4, 3 steps, batch 2) in both packages on the CPU, fed the same
+weights, noise, posterior draw, step noise and Griffin-Lim phase; the
+audio-to-audio modes, masks, stochastic sampling, DDPM, DDIM inversion,
+slerp and the diffusers-layout save/load in both directions; and that the
+port imports no JAX.
 
+Tolerances: uint8 spectrograms differ by at most 1 on at most 0.5% of the
+pixels; int16 audio by at most 2 LSB given one spectrogram and phase;
+scheduler math 1e-6."""
+
+import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -23,52 +31,95 @@ from audio_diffusion_torch.models import VAEConfig as TorchVAEConfig
 from audio_diffusion_torch.pipelines.pipeline import AudioDiffusionPipeline as TorchPipeline
 from audio_diffusion_torch.pipelines.pipeline import pcm16_quantize, postprocess_images
 from audio_diffusion_torch.schedulers import DDIMScheduler as TorchDDIM
+from audio_diffusion_torch.schedulers import DDPMScheduler as TorchDDPM
+from audio_diffusion_torch.schedulers import SchedulerConfig as TorchSchedulerConfig
 from audio_diffusion_torch.utils.convert import to_torch, unet_state_dict, vae_state_dict
 from audio_diffusion_tpu.mel import Mel
 from audio_diffusion_tpu.models import UNet2D, UNetConfig
 from audio_diffusion_tpu.models.vae import AutoencoderKL, VAEConfig
 from audio_diffusion_tpu.pipelines.pipeline import AudioDiffusionPipeline
 from audio_diffusion_tpu.pipelines.pipeline import postprocess_images as jax_postprocess
-from audio_diffusion_tpu.schedulers import DDIMScheduler
+from audio_diffusion_tpu.schedulers import DDIMScheduler, DDPMScheduler, SchedulerConfig
+from audio_diffusion_tpu.utils.torch_export import save_pipeline_torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 UNET_KW = dict(sample_size=(16, 16), block_out_channels=(32, 64),
                down_block_types=("DownBlock2D", "AttnDownBlock2D"), up_block_types=("AttnUpBlock2D", "UpBlock2D"),
                layers_per_block=1, norm_num_groups=8, attention_head_dim=8, fused_groupnorm=True)
 VAE_KW = dict(block_out_channels=(8, 16), layers_per_block=1, norm_num_groups=4, sample_size=32)
+MEL_KW = dict(x_res=32, y_res=32, hop_length=512, n_iter=4)
+FULL = 32 * 512  # one slice of audio, x_res * hop
+
+
+def _pair(unet_kw, vae_kw=None, scheduler="ddim"):
+    """One random-weight pipeline in each package, the same weights."""
+    cfg = UNetConfig(**unet_kw)
+    params = random_params(UNet2D(cfg).init_params, 10)
+    unet = TorchUNet(TorchUNetConfig(**unet_kw))
+    unet.load_state_dict(to_torch(unet_state_dict(params, cfg)), strict=True)
+    jvae = jvparams = tvae = None
+    if vae_kw is not None:
+        vcfg = VAEConfig(**vae_kw)
+        jvae, jvparams = AutoencoderKL(vcfg), random_params(AutoencoderKL(vcfg).init_params, 11)
+        tvae = TorchVAE(TorchVAEConfig(**vae_kw))
+        tvae.load_state_dict(to_torch(vae_state_dict(jvparams, vcfg)), strict=True)
+    sched_cfg = dict(num_train_timesteps=100) if scheduler == "ddpm" else {}
+    jsched = (DDPMScheduler if scheduler == "ddpm" else DDIMScheduler)(SchedulerConfig(**sched_cfg))
+    tsched = (TorchDDPM if scheduler == "ddpm" else TorchDDIM)(TorchSchedulerConfig(**sched_cfg))
+    jpipe = AudioDiffusionPipeline(UNet2D(cfg), params, Mel(**MEL_KW), jsched, jvae, jvparams)
+    tpipe = TorchPipeline(unet, TorchMel(**MEL_KW, device="cpu"), tsched, tvae, device="cpu")
+    return jpipe, tpipe
 
 
 @pytest.fixture(scope="module")
 def pipes():
-    cfg, vcfg = UNetConfig(**UNET_KW), VAEConfig(**VAE_KW)
-    params = random_params(UNet2D(cfg).init_params, 10)
-    vparams = random_params(AutoencoderKL(vcfg).init_params, 11)
-    jpipe = AudioDiffusionPipeline(UNet2D(cfg), params, Mel(x_res=32, y_res=32, hop_length=512, n_iter=4),
-                                   DDIMScheduler(), AutoencoderKL(vcfg), vparams)
-    unet, vae = TorchUNet(TorchUNetConfig(**UNET_KW)), TorchVAE(TorchVAEConfig(**VAE_KW))
-    unet.load_state_dict(to_torch(unet_state_dict(params, cfg)), strict=True)
-    vae.load_state_dict(to_torch(vae_state_dict(vparams, vcfg)), strict=True)
-    tmel = TorchMel(x_res=32, y_res=32, hop_length=512, n_iter=4, device="cpu")
-    tpipe = TorchPipeline(unet, tmel, TorchDDIM(), vae, device="cpu")
-    return jpipe, tpipe
+    return _pair(UNET_KW, VAE_KW)
+
+
+@pytest.fixture(scope="module")
+def pixel_pipes():
+    return _pair(dict(UNET_KW, sample_size=(32, 32)))
+
+
+def _jax_draws(key, batch, latent_shape, steps):
+    """The JAX __call__'s draws from ``key`` (pipeline.py:369 split order):
+    GL phase, the posterior's standard normal draw of a single clip, and the
+    variance noise of each step from the scalar step-key chain (common.py:25-54)."""
+    key, _, vae_key, gl_key = jax.random.split(key, 4)
+    phase = torch.from_numpy(np.array(2.0 * jnp.pi * jax.random.uniform(gl_key, (batch, 32, 1025))))
+    eps = torch.from_numpy(np.array(jax.random.normal(vae_key, (1, *latent_shape))))
+    chain = np.zeros((steps, batch, *latent_shape), np.float32)
+    for i in range(steps):
+        key, sub = jax.random.split(key)
+        chain[i] = np.array(jax.random.normal(sub, (batch, *latent_shape)))
+    return phase, eps, torch.from_numpy(chain)
+
+
+def _assert_uint8_close(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape and got.dtype == want.dtype == np.uint8
+    diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    assert diff.max() <= 1 and (diff > 0).mean() <= 0.005, (diff.max(), (diff > 0).mean())
+
+
+def _noise(seed, shape=(2, 16, 16, 1)):
+    return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
 
 
 def test_latent_pipeline_matches_jax(pipes):
     jpipe, tpipe = pipes
-    noise = np.random.default_rng(12).standard_normal((2, 16, 16, 1)).astype(np.float32)
+    noise = _noise(12)
     key = jax.random.key(13)
     raw_j, audio_j = jpipe(batch_size=2, steps=3, key=key, noise=jnp.asarray(noise), return_arrays=True,
                            pcm16=True)
     raw_j, audio_j = np.asarray(raw_j), np.asarray(audio_j)
-    gl_key = jax.random.split(key, 4)[3]  # pipeline.py:369 split order
-    phase = torch.from_numpy(np.array(2.0 * jnp.pi * jax.random.uniform(gl_key, (2, 32, 1025))))
+    phase, _, _ = _jax_draws(key, 2, (16, 16, 1), 0)
     raw_t, audio_t = tpipe(batch_size=2, steps=3, noise=torch.from_numpy(noise), gl_phase=phase,
                            return_arrays=True, pcm16=True)
     raw_t, audio_t = raw_t.numpy(), audio_t.numpy()
 
     assert raw_t.shape == raw_j.shape == (2, 32, 32) and raw_t.dtype == np.uint8
-    diff = np.abs(raw_t.astype(np.int32) - raw_j.astype(np.int32))
-    assert diff.max() <= 1 and (diff > 0).mean() <= 0.005, (diff.max(), (diff > 0).mean())
+    _assert_uint8_close(raw_t, raw_j)
     assert audio_t.shape == audio_j.shape == (2, 31 * 512) and audio_t.dtype == np.int16
 
     # Audio contract (bench.py:194): from the JAX spectrogram and the same phase,
@@ -78,14 +129,148 @@ def test_latent_pipeline_matches_jax(pipes):
     assert lsb <= 2, lsb
 
 
-def test_pipeline_output_and_unported_options(pipes):
+def _clips(seed, n):
+    t = np.arange(FULL) / 22050
+    rng = np.random.default_rng(seed)
+    return np.stack([(0.5 * np.sin(2 * np.pi * (220 + 110 * i) * t) + 0.05 * rng.standard_normal(FULL))
+                     for i in range(n)]).astype(np.float32)
+
+
+# (input mode, start_step, mask seconds at the start and the end)
+A2A_CASES = {"batched": ("batched", 1, 0.0), "single": ("single", 1, 0.0),
+             "single masked": ("single", 2, 0.1), "batched masked from noise": ("batched", 0, 0.1)}
+
+
+@pytest.mark.parametrize("case", list(A2A_CASES))
+def test_audio_to_audio_matches_jax(pipes, case):
+    """raw_audio as (B, samples) rows ("batched": posterior mode) or one clip
+    broadcast over the batch ("single": a posterior sample, its draw
+    injected), re-noised at ``timesteps[start_step - 1]``, with and without
+    the column masks (the current-t noise level, pipeline.py:23-26)."""
+    jpipe, tpipe = pipes
+    mode, start_step, mask = A2A_CASES[case]
+    clips = _clips(14, 2)
+    raw_audio = clips if mode == "batched" else clips[0, : FULL - 100]
+    noise = _noise(15)
+    key = jax.random.key(16)
+    kw = dict(raw_audio=raw_audio, start_step=start_step, steps=3, mask_start_secs=mask, mask_end_secs=mask,
+              return_arrays=True)
+    raw_j, _ = jpipe(noise=jnp.asarray(noise), key=key, **kw)
+    phase, eps, _ = _jax_draws(key, 2, (16, 16, 1), 0)
+    raw_t, _ = tpipe(noise=torch.from_numpy(noise), gl_phase=phase, posterior_eps=eps, **kw)
+    _assert_uint8_close(raw_t.numpy(), raw_j)
+    if mode == "single":  # the sample, not the mode: the draw reached the latents
+        raw_mode, _ = tpipe(noise=torch.from_numpy(noise), gl_phase=phase, posterior_eps=torch.zeros_like(eps), **kw)
+        assert not np.array_equal(raw_mode.numpy(), raw_t.numpy())
+
+
+@pytest.mark.parametrize("scheduler, eta", [("ddim", 0.6), ("ddpm", 0.0)])
+def test_stochastic_sampling_matches_jax(scheduler, eta):
+    """DDIM eta > 0 and DDPM, the JAX step-key chain's noise injected."""
+    jpipe, tpipe = _pair(UNET_KW, VAE_KW, scheduler)
+    noise = _noise(17)
+    key = jax.random.key(18)
+    raw_j, _ = jpipe(noise=jnp.asarray(noise), key=key, steps=3, eta=eta, return_arrays=True)
+    phase, _, chain = _jax_draws(key, 2, (16, 16, 1), 3)
+    raw_t, _ = tpipe(noise=torch.from_numpy(noise), steps=3, eta=eta, gl_phase=phase, step_noise=chain,
+                     return_arrays=True)
+    _assert_uint8_close(raw_t.numpy(), raw_j)
+    assert tpipe.get_default_steps() == jpipe.get_default_steps()
+
+
+def test_encode_and_slerp_match_jax(pipes):
+    """DDIM inversion over the VAE posterior mode, fed back through noise=."""
+    jpipe, tpipe = pipes
+    images = jpipe(noise=jnp.asarray(_noise(19)), steps=3, key=jax.random.key(20)).images
+    enc_j = np.asarray(jpipe.encode(images, steps=3))
+    enc_t = tpipe.encode(images, steps=3).numpy()
+    assert enc_t.shape == enc_j.shape == (2, 16, 16, 1)
+    np.testing.assert_allclose(enc_t, enc_j, atol=1e-4 * np.abs(enc_j).max())
+
+    mixed_j = np.asarray(AudioDiffusionPipeline.slerp(enc_j[:1], enc_j[1:], 0.3))
+    mixed_t = TorchPipeline.slerp(torch.from_numpy(enc_j[:1]), torch.from_numpy(enc_j[1:]), 0.3).numpy()
+    np.testing.assert_allclose(mixed_t, mixed_j, atol=1e-6)
+
+    noise = np.concatenate([enc_j, mixed_j])
+    raw_j, _ = jpipe(noise=jnp.asarray(noise), steps=3, return_arrays=True)
+    raw_t, _ = tpipe(noise=torch.from_numpy(noise), steps=3, return_arrays=True)
+    _assert_uint8_close(raw_t.numpy(), raw_j)
+
+
+def _state_dicts_equal(a, b):
+    sa, sb = a.state_dict(), b.state_dict()
+    assert sa.keys() == sb.keys()
+    for k in sa:
+        torch.testing.assert_close(sa[k], sb[k], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("kind", ["latent", "pixel"])
+def test_diffusers_layout_loads_across_packages(pipes, pixel_pipes, kind, tmp_path, monkeypatch):
+    """JAX ``save_pipeline_torch`` -> port ``from_pretrained``, and port
+    ``save_pretrained`` -> JAX ``from_pretrained`` (its torch-import route):
+    each loaded pipeline gives the other package's spectrograms."""
+    # The JAX import route checks the converted weights against a template
+    # from flax's init, which only needs its shapes; flax's own init runs op
+    # by op on the CPU (~30 s for the VAE), so the template is made from
+    # jax.eval_shape instead.
+    for cls in (UNet2D, AutoencoderKL):
+        def shapes_only(self, key, init=cls.init_params):
+            return jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), jax.eval_shape(lambda k: init(self, k), key))
+
+        monkeypatch.setattr(cls, "init_params", shapes_only)
+    jpipe, tpipe = pipes if kind == "latent" else pixel_pipes
+    h, w = tpipe.sample_hw
+    noise = _noise(21, (2, h, w, 1))
+    raw_j, _ = jpipe(noise=jnp.asarray(noise), steps=3, return_arrays=True)
+    raw_t, _ = tpipe(noise=torch.from_numpy(noise), steps=3, return_arrays=True)
+
+    save_pipeline_torch(jpipe, str(tmp_path / "from_jax"))
+    loaded_t = TorchPipeline.from_pretrained(str(tmp_path / "from_jax"), fused_groupnorm=True, device="cpu")
+    _state_dicts_equal(loaded_t.unet, tpipe.unet)
+    assert loaded_t.unet.config == tpipe.unet.config and loaded_t.mel.config == tpipe.mel.config
+    assert (loaded_t.vqvae is None) == (kind == "pixel")
+    _assert_uint8_close(loaded_t(noise=torch.from_numpy(noise), steps=3, return_arrays=True)[0].numpy(), raw_j)
+
+    tpipe.save_pretrained(str(tmp_path / "from_torch"))
+    with open(tmp_path / "from_torch" / "model_index.json") as fh:
+        assert json.load(fh)["_class_name"] == "AudioDiffusionPipeline"
+    loaded_j = AudioDiffusionPipeline.from_pretrained(str(tmp_path / "from_torch"))
+    assert dataclasses.replace(loaded_j.unet.config, fused_groupnorm=True) == jpipe.unet.config
+    _assert_uint8_close(raw_t.numpy(), np.asarray(loaded_j(noise=jnp.asarray(noise), steps=3,
+                                                           return_arrays=True)[0]))
+    overridden = TorchPipeline.from_pretrained(str(tmp_path / "from_torch"), dtype="bfloat16", device="cpu")
+    assert overridden.unet.config.dtype == "bfloat16" and not overridden.unet.config.fused_groupnorm
+    if kind == "latent":
+        assert overridden.vqvae.config.dtype == "bfloat16"
+        _state_dicts_equal(overridden.vqvae, tpipe.vqvae)
+
+
+def test_pipeline_output_and_unported_options(pipes, tmp_path):
     _, tpipe = pipes
     out = tpipe(batch_size=1, steps=2, generator=torch.Generator().manual_seed(0))
     assert out.raw_images.shape == (1, 32, 32) and out.images[0].size == (32, 32)
     assert out.audios[0].shape == (31 * 512,) and np.isfinite(out.audios[0]).all()
-    for kw in ({"start_step": 1}, {"raw_audio": np.zeros(100)}, {"encoding": np.zeros((1, 4))}, {"eta": 0.5}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tpipe(batch_size=1, steps=2, **kw)
+    images, (sr, audios) = tpipe(batch_size=1, steps=2, return_dict=False)
+    assert sr == 22050 and len(images) == len(audios) == 1
+    raw = tpipe(batch_size=1, steps=2, return_images_only=True)
+    np.testing.assert_array_equal(raw, out.raw_images)  # the same seed-0 generator draws the same noise
+    nchw = tpipe(noise=torch.from_numpy(_noise(22)).permute(0, 3, 1, 2), steps=2, return_images_only=True)
+    np.testing.assert_array_equal(nchw, tpipe(noise=torch.from_numpy(_noise(22)), steps=2, return_images_only=True))
+    with pytest.raises(ValueError, match="unconditional"):
+        tpipe(batch_size=1, steps=2, encoding=np.zeros((1, 4)))
+    with pytest.raises(ValueError, match="start_step .* must be < steps"):
+        tpipe(batch_size=1, start_step=500, steps=3)
+    with pytest.raises(ValueError, match="raw_audio batch"):
+        tpipe(raw_audio=_clips(0, 3), noise=torch.from_numpy(_noise(0)), steps=2)
+    with pytest.raises(ValueError, match="per-row step_generator"):
+        tpipe(batch_size=2, steps=2, eta=1.0, step_generator=[torch.Generator()])
+    with pytest.raises(FileNotFoundError, match="Hub model id"):
+        TorchPipeline.from_pretrained("teticio/audio-diffusion-256", device="cpu")
+    tpipe.save_pretrained(str(tmp_path))
+    unet_dir = tmp_path / "unet"
+    os.replace(unet_dir / "diffusion_pytorch_model.bin", unet_dir / "diffusion_pytorch_model.safetensors")
+    with pytest.raises(ValueError, match="safetensors"):
+        TorchPipeline.from_pretrained(str(tmp_path), device="cpu")
 
 
 def test_ddim_step_and_postprocess_match_jax():
@@ -116,7 +301,10 @@ def test_ddim_step_and_postprocess_match_jax():
 
 def test_port_imports_no_jax():
     code = ("import sys, audio_diffusion_torch, audio_diffusion_torch.pipelines.pipeline, "
-            "audio_diffusion_torch.utils.convert, audio_diffusion_torch.ops._build; "
+            "audio_diffusion_torch.utils.convert, audio_diffusion_torch.utils.diffusers_io, "
+            "audio_diffusion_torch.ops._build, audio_diffusion_torch.ops.audio_io, "
+            "audio_diffusion_torch.schedulers.ddpm, audio_diffusion_torch.serving, "
+            "audio_diffusion_torch.serving.__main__; "
             "bad = [m for m in ('jax', 'flax', 'audio_diffusion_tpu') if m in sys.modules]; "
             "assert not bad, bad")
     env = {**os.environ, "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH", "")}
