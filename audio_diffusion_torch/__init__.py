@@ -1,11 +1,12 @@
 """audio_diffusion_torch — the PyTorch/CUDA port of audio_diffusion_tpu.
 
-Runs unconditional latent and pixel generation and its serving path on an
-NVIDIA H100: mel DSP, DDIM and DDPM, the UNet and KL-VAE, the pipeline
-(audio-to-audio, inversion, diffusers-layout save/load) and the batching HTTP
-server (``serving``), with hand-written CUDA kernels (``csrc/``) for fused
-GroupNorm+SiLU and many-small-heads attention. Imports torch, numpy and scipy,
-never JAX.
+Runs unconditional and conditional (``encoding=``) latent and pixel
+generation and its serving path on an NVIDIA H100: mel DSP, DDIM and DDPM,
+the UNet (with the cross-attention blocks), the KL-VAE and the AudioEncoder,
+the pipeline (audio-to-audio, inversion, diffusers-layout save/load) and the
+batching HTTP server (``serving``), with hand-written CUDA kernels (``csrc/``)
+for fused GroupNorm+SiLU and many-small-heads attention. Imports torch, numpy
+and scipy, never JAX.
 """
 
 VERSION = "0.1.0"

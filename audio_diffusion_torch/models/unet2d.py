@@ -1,4 +1,4 @@
-"""UNet2D for mel-spectrogram diffusion, unconditional part
+"""UNet2D for mel-spectrogram diffusion, unconditional and cross-attention
 (port of ``audio_diffusion_tpu/models/unet2d.py``).
 
 The public ``forward`` takes and returns NHWC like the flax module; inside,
@@ -8,12 +8,15 @@ run for the GroupNorm kernel. Parameters follow the diffusers key layout that
 converted checkpoints (``utils/convert.py``) load with ``strict=True``.
 
 Precision follows the JAX package: parameters stay f32 and each conv and
-linear casts them to the compute dtype (``UNetConfig.dtype``); GroupNorm
-statistics are f32 with compute-dtype output; ``conv_out`` reads
+linear casts them to the compute dtype (``UNetConfig.dtype``); GroupNorm and
+LayerNorm statistics are f32 with compute-dtype output; ``conv_out`` reads
 compute-dtype-rounded operands and accumulates and emits f32.
 ``fused_groupnorm`` routes every ResnetBlock2D norm through
 :func:`..ops.fused_groupnorm.fused_group_norm_silu`; SelfAttention2D always
-goes through :func:`..ops.attention.multi_head_attention`.
+goes through :func:`..ops.attention.multi_head_attention`. The conditional
+blocks' ``CrossAttention`` is ``jax.nn.dot_product_attention`` in the JAX
+package, XLA and not a Pallas kernel: here it is
+:func:`..ops.attention.dot_product_attention` (SDPA on the card).
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.attention import multi_head_attention
+from ..ops.attention import dot_product_attention, multi_head_attention
 from ..ops.fused_groupnorm import fused_group_norm_silu
 from ..utils.config import ConfigMixin
 
@@ -90,6 +93,21 @@ def unconditional_config(sample_size=(256, 256), in_channels=1, out_channels=1, 
     return UNetConfig(sample_size=sample_size, in_channels=in_channels, out_channels=out_channels, **kw)
 
 
+def conditional_config(sample_size=(256, 256), in_channels=1, out_channels=1, cross_attention_dim=100,
+                       **kw) -> UNetConfig:
+    """The reference's conditional architecture (train_unet.py:140-159)."""
+    return UNetConfig(
+        sample_size=sample_size,
+        in_channels=in_channels,
+        out_channels=out_channels,
+        block_out_channels=(128, 256, 512, 512),
+        down_block_types=("CrossAttnDownBlock2D", "CrossAttnDownBlock2D", "CrossAttnDownBlock2D", "DownBlock2D"),
+        up_block_types=("UpBlock2D", "CrossAttnUpBlock2D", "CrossAttnUpBlock2D", "CrossAttnUpBlock2D"),
+        cross_attention_dim=cross_attention_dim,
+        **kw,
+    )
+
+
 # ------------------------------------------------------------------ layers
 
 class Conv2d(nn.Conv2d):
@@ -103,7 +121,7 @@ class Linear(nn.Linear):
     """nn.Linear whose f32 parameters are cast to the input's dtype per call."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+        return F.linear(x, self.weight.to(x.dtype), None if self.bias is None else self.bias.to(x.dtype))
 
 
 def group_norm(x: torch.Tensor, norm: nn.GroupNorm, silu: bool = False) -> torch.Tensor:
@@ -111,6 +129,12 @@ def group_norm(x: torch.Tensor, norm: nn.GroupNorm, silu: bool = False) -> torch
     in x's dtype, with the SiLU (when asked) applied after that rounding."""
     y = F.group_norm(x.float(), norm.num_groups, norm.weight, norm.bias, norm.eps).to(x.dtype)
     return F.silu(y) if silu else y
+
+
+def layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
+    """flax ``nn.LayerNorm(dtype=float32)`` feeding a compute-dtype Dense: f32
+    statistics and affine, rounded to x's dtype (the compute dtype)."""
+    return F.layer_norm(x.float(), norm.normalized_shape, norm.weight, norm.bias, norm.eps).to(x.dtype)
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int, flip_sin_to_cos: bool = True,
@@ -189,6 +213,95 @@ class SelfAttention2D(nn.Module):
         return o.transpose(1, 2).reshape(b, c, h, w) + x
 
 
+class CrossAttention(nn.Module):
+    """Multi-head attention whose keys and values come from ``context`` (or
+    from x itself when it is None); to_q/to_k/to_v have no bias."""
+
+    def __init__(self, query_dim: int, heads: int, head_dim: int, context_dim: Optional[int] = None):
+        super().__init__()
+        self.heads, self.head_dim = heads, head_dim
+        inner = heads * head_dim
+        self.to_q = Linear(query_dim, inner, bias=False)
+        self.to_k = Linear(context_dim or query_dim, inner, bias=False)
+        self.to_v = Linear(context_dim or query_dim, inner, bias=False)
+        self.to_out = nn.ModuleList([Linear(inner, query_dim)])
+
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
+        context = x if context is None else context
+        b, n, _ = x.shape
+        m = context.shape[1]
+        q = self.to_q(x).reshape(b, n, self.heads, self.head_dim)
+        k = self.to_k(context).reshape(b, m, self.heads, self.head_dim)
+        v = self.to_v(context).reshape(b, m, self.heads, self.head_dim)
+        o = dot_product_attention(q, k, v)
+        return self.to_out[0](o.reshape(b, n, self.heads * self.head_dim))
+
+
+class GEGLU(nn.Module):
+    """``proj`` to twice the width, then the first half times the exact (erf)
+    gelu of the second half (diffusers GEGLU; unet2d.py:355-369)."""
+
+    def __init__(self, dim: int, inner: int):
+        super().__init__()
+        self.proj = Linear(dim, inner * 2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h, gate = self.proj(x).chunk(2, dim=-1)
+        return h * F.gelu(gate)
+
+
+class FeedForwardGEGLU(nn.Module):
+    """diffusers ``FeedForward``: ``net`` is [GEGLU, its Dropout slot (the
+    identity at inference), Linear], so the keys are ff.net.0.proj and ff.net.2."""
+
+    def __init__(self, dim: int, mult: int = 4):
+        super().__init__()
+        self.net = nn.ModuleList([GEGLU(dim, dim * mult), nn.Identity(), Linear(dim * mult, dim)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for layer in self.net:
+            x = layer(x)
+        return x
+
+
+class TransformerBlock(nn.Module):
+    """BasicTransformerBlock: self-attention, cross-attention, GEGLU feed-forward,
+    each behind a pre-LayerNorm (flax's epsilon 1e-6) and a residual."""
+
+    def __init__(self, dim: int, heads: int, head_dim: int, context_dim: int):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(dim, eps=1e-6)
+        self.attn1 = CrossAttention(dim, heads, head_dim)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-6)
+        self.attn2 = CrossAttention(dim, heads, head_dim, context_dim)
+        self.norm3 = nn.LayerNorm(dim, eps=1e-6)
+        self.ff = FeedForwardGEGLU(dim)
+
+    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn1(layer_norm(x, self.norm1))
+        x = x + self.attn2(layer_norm(x, self.norm2), context)
+        return x + self.ff(layer_norm(x, self.norm3))
+
+
+class Transformer2D(nn.Module):
+    """Spatial transformer over H*W tokens: GroupNorm (epsilon fixed at 1e-6,
+    no SiLU), proj_in, one TransformerBlock, proj_out, and a residual
+    (diffusers Transformer2DModel with ``use_linear_projection``)."""
+
+    def __init__(self, channels: int, heads: int, head_dim: int, context_dim: int, groups: int = 32):
+        super().__init__()
+        self.norm = nn.GroupNorm(groups, channels, eps=1e-6)
+        self.proj_in = Linear(channels, channels)
+        self.transformer_blocks = nn.ModuleList([TransformerBlock(channels, heads, head_dim, context_dim)])
+        self.proj_out = Linear(channels, channels)
+
+    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+        b, c, h, w = x.shape
+        y = group_norm(x, self.norm).reshape(b, c, h * w).transpose(1, 2)  # (B, N, C)
+        y = self.proj_out(self.transformer_blocks[0](self.proj_in(y), context))
+        return y.transpose(1, 2).reshape(b, c, h, w) + x
+
+
 class Downsample2D(nn.Module):
     def __init__(self, channels: int):
         super().__init__()
@@ -209,30 +322,55 @@ class Upsample2D(nn.Module):
         return self.conv(F.interpolate(x, scale_factor=2, mode="nearest"))
 
 
-def _check_block_type(block_type: str) -> None:
-    if "CrossAttn" in block_type:
-        raise NotImplementedError(f"{block_type}: the conditional tier waits (ROADMAP Queue 1 item 9)")
-    if block_type not in ("DownBlock2D", "AttnDownBlock2D", "UpBlock2D", "AttnUpBlock2D"):
-        raise ValueError(f"unknown block type {block_type!r}")
+_BLOCK_TYPES = ("DownBlock2D", "AttnDownBlock2D", "CrossAttnDownBlock2D",
+                "UpBlock2D", "AttnUpBlock2D", "CrossAttnUpBlock2D")
+MAX_ATTENTION_TOKENS = 16384  # 128x128: the JAX package's feasibility limit (unet2d.py:586-603)
+
+
+def _check_attention_tokens(cfg: UNetConfig, h: int, w: int) -> None:
+    """A level attending over N tokens computes N^2 logits per head: refuse
+    inputs whose attention levels exceed MAX_ATTENTION_TOKENS, with the JAX
+    package's message and fix (the conditional architecture attends at its
+    first level, so it is meant for VAE latents, not pixels)."""
+    levels = list(zip(cfg.down_block_types, reversed(cfg.up_block_types)))
+    deepest = len(cfg.block_out_channels) - 1
+    for i, bt in enumerate(levels + [("mid-attention", "mid-attention")]):
+        i = min(i, deepest)  # the mid block runs at the deepest level
+        if any("ttn" in b for b in bt):
+            tokens = (h >> i) * (w >> i)
+            if tokens > MAX_ATTENTION_TOKENS:
+                raise ValueError(
+                    f"{'/'.join(set(bt))} at level {i} would attend over {tokens} tokens for input {h}x{w} — "
+                    f"infeasible ({tokens}^2 logits/head). Train this architecture over VAE latents instead "
+                    f"(train_unet --vae, the reference's conditional-latent recipe) or reduce the resolution.")
+
+
+def _attend(attn: nn.Module, x: torch.Tensor, context: Optional[torch.Tensor]) -> torch.Tensor:
+    return attn(x, context) if isinstance(attn, Transformer2D) else attn(x)
 
 
 # ----------------------------------------------------------------------- UNet
 
 class UNet2D(nn.Module):
-    """Unconditional UNet (reference: train_unet.py:115-137). Built on the CPU;
-    move it with ``.to(device)``."""
+    """Unconditional or conditional UNet; ``config.cross_attention_dim`` makes
+    the CrossAttn blocks and the mid block ``Transformer2D``s (reference:
+    train_unet.py:115-159). Built on the CPU; move it with ``.to(device)``."""
 
     def __init__(self, config: UNetConfig):
         super().__init__()
-        if config.is_conditional:
-            raise NotImplementedError("conditional UNet: waits for ROADMAP Queue 1 item 9")
         for bt in config.down_block_types + config.up_block_types:
-            _check_block_type(bt)
+            if bt not in _BLOCK_TYPES:
+                raise ValueError(f"unknown block type {bt!r}")
         self.config = cfg = config
         ch0 = cfg.block_out_channels[0]
         temb_dim = ch0 * 4
         g, eps, fused, hd = cfg.norm_num_groups, cfg.norm_eps, cfg.fused_groupnorm, cfg.attention_head_dim
         n = len(cfg.block_out_channels)
+
+        def transformer(ch):
+            # diffusers 0.12-0.24 UNet2DConditionModel: attention_head_dim is the NUMBER of heads here,
+            # the opposite of SelfAttention2D's convention (unet2d.py:544-552)
+            return Transformer2D(ch, hd, max(ch // hd, 1), cfg.cross_attention_dim, g)
 
         self.time_embedding = TimestepEmbedding(ch0, temb_dim)
         self.conv_in = Conv2d(cfg.in_channels, ch0, 3, padding=1)
@@ -249,6 +387,8 @@ class UNet2D(nn.Module):
                 blk.resnets.append(ResnetBlock2D(ch, out_ch, temb_dim, g, eps, fused))
                 if bt == "AttnDownBlock2D":
                     blk.attentions.append(SelfAttention2D(out_ch, hd, g, eps))
+                elif bt == "CrossAttnDownBlock2D":
+                    blk.attentions.append(transformer(out_ch))
                 ch = out_ch
                 skip_channels.append(out_ch)
             if i != n - 1:
@@ -260,7 +400,8 @@ class UNet2D(nn.Module):
         self.mid_block = nn.Module()
         self.mid_block.resnets = nn.ModuleList([ResnetBlock2D(mid_ch, mid_ch, temb_dim, g, eps, fused),
                                                 ResnetBlock2D(mid_ch, mid_ch, temb_dim, g, eps, fused)])
-        self.mid_block.attentions = nn.ModuleList([SelfAttention2D(mid_ch, hd, g, eps)])
+        self.mid_block.attentions = nn.ModuleList([transformer(mid_ch) if cfg.is_conditional
+                                                   else SelfAttention2D(mid_ch, hd, g, eps)])
 
         self.up_blocks = nn.ModuleList()
         reversed_ch = tuple(reversed(cfg.block_out_channels))
@@ -274,6 +415,8 @@ class UNet2D(nn.Module):
                 blk.resnets.append(ResnetBlock2D(ch + skip_channels.pop(), out_ch, temb_dim, g, eps, fused))
                 if bt == "AttnUpBlock2D":
                     blk.attentions.append(SelfAttention2D(out_ch, hd, g, eps))
+                elif bt == "CrossAttnUpBlock2D":
+                    blk.attentions.append(transformer(out_ch))
                 ch = out_ch
             if i != n - 1:
                 blk.upsamplers = nn.ModuleList([Upsample2D(out_ch)])
@@ -282,19 +425,26 @@ class UNet2D(nn.Module):
         self.conv_norm_out = nn.GroupNorm(g, ch0, eps=eps)
         self.conv_out = nn.Conv2d(ch0, cfg.out_channels, 3, padding=1)
 
-    def forward(self, sample: torch.Tensor, timesteps: torch.Tensor) -> torch.Tensor:
+    def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
+                encoder_hidden_states: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Args:
             sample: (B, H, W, C) noisy images, NHWC.
             timesteps: scalar or (B,) diffusion timesteps.
+            encoder_hidden_states: (B, seq, cross_attention_dim) conditioning;
+                required by a conditional UNet, ignored by an unconditional one.
         Returns:
             (B, H, W, out_channels) f32 prediction (epsilon by default), NHWC.
         """
         cfg = self.config
         dtype = cfg.compute_dtype
+        if cfg.is_conditional and encoder_hidden_states is None:
+            raise ValueError("conditional UNet requires encoder_hidden_states")
         factor = 2 ** (len(cfg.block_out_channels) - 1)
         if sample.shape[1] % factor or sample.shape[2] % factor:
             raise ValueError(f"sample spatial dims {tuple(sample.shape[1:3])} must be divisible by {factor} "
                              "(2^(num_blocks-1)) or the up-path skip shapes break")
+        _check_attention_tokens(cfg, sample.shape[1], sample.shape[2])
+        context = None if encoder_hidden_states is None else encoder_hidden_states.to(dtype)
         timesteps = torch.as_tensor(timesteps, device=sample.device)
         if timesteps.dim() == 0:
             timesteps = timesteps.expand(sample.shape[0])
@@ -309,21 +459,21 @@ class UNet2D(nn.Module):
             for j, res in enumerate(blk.resnets):
                 x = res(x, temb)
                 if len(blk.attentions):
-                    x = blk.attentions[j](x)
+                    x = _attend(blk.attentions[j], x, context)
                 skips.append(x)
             if i != n - 1:
                 x = blk.downsamplers[0](x)
                 skips.append(x)
 
         x = self.mid_block.resnets[0](x, temb)
-        x = self.mid_block.attentions[0](x)
+        x = _attend(self.mid_block.attentions[0], x, context)
         x = self.mid_block.resnets[1](x, temb)
 
         for i, blk in enumerate(self.up_blocks):
             for j, res in enumerate(blk.resnets):
                 x = res(torch.cat([x, skips.pop()], dim=1), temb)
                 if len(blk.attentions):
-                    x = blk.attentions[j](x)
+                    x = _attend(blk.attentions[j], x, context)
             if i != n - 1:
                 x = blk.upsamplers[0](x)
 
@@ -350,7 +500,8 @@ def init_flax_defaults(module: nn.Module, generator: torch.Generator) -> None:
             fan_in = m.weight[0].numel()
             std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
             nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std, generator=generator)
-            nn.init.zeros_(m.bias)
-        elif isinstance(m, nn.GroupNorm):
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+        elif isinstance(m, (nn.GroupNorm, nn.LayerNorm)):
             nn.init.ones_(m.weight)
             nn.init.zeros_(m.bias)

@@ -193,3 +193,27 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> t
     if q.is_cpu:
         return attention_plain(q, k, v)
     return flash_mha(q, k, v)
+
+
+# ------------------------------------------- jax.nn.dot_product_attention's counterpart
+
+def dot_product_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.dot_product_attention``'s XLA math (``_dot_product_attention_core``,
+    jax 0.9) over layout (B, N, heads, d) for q and (B, M, heads, d) for k and
+    v: f32 logits scaled by 1/sqrt(d), f32 softmax, probabilities cast to v's
+    dtype before the product with v. Materialises the (B, heads, N, M) logits."""
+    logits = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * (1.0 / math.sqrt(q.shape[-1]))
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bhnm,bmhd->bnhd", probs, v)
+
+
+def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The conditional UNet's ``CrossAttention`` core, (B, N, heads, d) queries
+    over (B, M, heads, d) keys and values. In the JAX package it is XLA's
+    ``jax.nn.dot_product_attention``, not a Pallas kernel, so the card runs
+    torch's ``F.scaled_dot_product_attention`` (no logits in memory) and no
+    kernel of this repo; CPU tensors take :func:`dot_product_attention_plain`."""
+    if q.is_cpu:
+        return dot_product_attention_plain(q, k, v)
+    return torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)).transpose(1, 2)

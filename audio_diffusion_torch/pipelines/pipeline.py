@@ -132,6 +132,34 @@ class AudioDiffusionPipeline:
         images = noise if t0 is None else self.scheduler.add_noise(input_images, noise, t0)
         return images, input_images
 
+    def _validate_encoding(self, encoding, batch_rows: int) -> Optional[torch.Tensor]:
+        """``encoding`` as an f32 (B, seq, dim) tensor on the device, with the
+        JAX package's checks and messages (pipeline.py:264-293): a 2-D (B, dim)
+        encoding becomes a length-1 sequence; the last axis must be the UNet's
+        cross_attention_dim and the batch the generation batch (the noise's
+        leading axis, which user-supplied noise= sets)."""
+        if encoding is None:
+            return None
+        if not self.unet.config.is_conditional:
+            raise ValueError(
+                "encoding= was passed but this pipeline's UNet is unconditional "
+                "(config.cross_attention_dim is None) — the conditioning would be "
+                "silently ignored. Load a conditional model or drop encoding=.")
+        enc = torch.as_tensor(encoding, dtype=torch.float32).to(self.device)
+        if enc.dim() == 2:
+            enc = enc[:, None, :]
+        want = self.unet.config.cross_attention_dim
+        if enc.dim() != 3 or enc.shape[-1] != want:
+            raise ValueError(
+                f"encoding must be (batch, seq, {want}) [or (batch, {want})], "
+                f"got shape {tuple(enc.shape)} — the last axis must equal the "
+                f"UNet's cross_attention_dim ({want}).")
+        if enc.shape[0] != batch_rows:
+            raise ValueError(
+                f"encoding batch axis ({enc.shape[0]}) must equal the "
+                f"generation batch ({batch_rows}).")
+        return enc
+
     # -------------------------------------------------------------- generation
     @torch.inference_mode()
     def __call__(
@@ -180,7 +208,10 @@ class AudioDiffusionPipeline:
                 steps independent of its co-batch (serving).
             noise: (B, H, W, C) NHWC initial sample, NCHW accepted; overrides
                 ``batch_size``.
-            encoding: conditioning; this port's UNet is unconditional, so it raises.
+            encoding: (B, seq, cross_attention_dim) conditioning of a
+                conditional UNet, or (B, cross_attention_dim), a length-1
+                sequence (the AudioEncoder's pooled output); every denoise
+                step's UNet call takes it.
             return_dict: False gives ``(images, (sample_rate, audios))``.
             return_images_only: return the (B, H, W) uint8 spectrograms as numpy, no audio.
             return_arrays: return ``(uint8 images, audio)`` tensors on the device.
@@ -197,11 +228,6 @@ class AudioDiffusionPipeline:
                 "start_step indexes the inference schedule, so a DDPM-era "
                 "value like 500 must be rescaled for a 50-step DDIM run "
                 "(e.g. steps // 2 for a half-strength variation).")
-        if encoding is not None:
-            raise ValueError(
-                "encoding= was passed but this pipeline's UNet is unconditional "
-                "(config.cross_attention_dim is None) — the conditioning would be "
-                "silently ignored. Load a conditional model or drop encoding=.")
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         h, w = self.sample_hw
@@ -213,6 +239,7 @@ class AudioDiffusionPipeline:
         if noise.shape[-1] != in_ch and noise.shape[1] == in_ch:
             noise = noise.permute(0, 2, 3, 1)  # accept NCHW
         rows = noise.shape[0]
+        enc = self._validate_encoding(encoding, rows)
         if isinstance(step_generator, (list, tuple)) and len(step_generator) != rows:
             raise ValueError(f"per-row step_generator batch ({len(step_generator)}) must equal the "
                              f"generation batch ({rows}).")
@@ -245,7 +272,7 @@ class AudioDiffusionPipeline:
         x = images
         for t in timesteps:
             t = int(t)
-            model_output = self.unet(x, torch.full((rows,), t, dtype=torch.int64, device=self.device))
+            model_output = self.unet(x, torch.full((rows,), t, dtype=torch.int64, device=self.device), enc)
             noise_t = next(noises) if stochastic else None
             if is_ddim:
                 x = self.scheduler.step(model_output, t, x, schedule, eta=float(eta), noise=noise_t)
@@ -278,7 +305,9 @@ class AudioDiffusionPipeline:
         """Deterministic DDIM inversion: images -> noise (pipeline.py:615-652).
         Feeding the result back as ``noise=`` reproduces the images. A latent
         pipeline first takes the VAE posterior mode, so the noise has the
-        UNet's latent shape. Returns (B, H, W, C) on the pipeline's device."""
+        UNet's latent shape. Returns (B, H, W, C) on the pipeline's device.
+        Unconditional, as in the JAX package (pipeline.py:645): a conditional
+        UNet raises for want of an encoding."""
         if not isinstance(self.scheduler, DDIMScheduler):
             raise ValueError("encode requires DDIM (deterministic)")
         schedule = self.scheduler.schedule(steps)
@@ -315,7 +344,7 @@ class AudioDiffusionPipeline:
             "_diffusers_version": diffusers_io.DIFFUSERS_VERSION,
             "mel": ["diffusers", "Mel"],
             "scheduler": ["diffusers", type(self.scheduler).__name__],
-            "unet": ["diffusers", "UNet2DModel"],
+            "unet": ["diffusers", "UNet2DConditionModel" if self.unet.config.is_conditional else "UNet2DModel"],
         }
         if self.vqvae is not None:
             index["vqvae"] = ["diffusers", "AutoencoderKL"]
@@ -362,7 +391,8 @@ class AudioDiffusionPipeline:
         unet_cfg = diffusers_io.unet_config_from_diffusers(diffusers_io.read_json(f"{unet_dir}/config.json"))
         overrides = {k: v for k, v in (("dtype", dtype), ("fused_groupnorm", fused_groupnorm)) if v is not None}
         unet = UNet2D(dataclasses.replace(unet_cfg, **overrides))
-        unet.load_state_dict(diffusers_io.load_state_dict(unet_dir), strict=True)
+        unet.load_state_dict(diffusers_io.linear_from_conv1x1(diffusers_io.load_state_dict(unet_dir), unet),
+                             strict=True)
 
         scheduler = load_scheduler(os.path.join(directory, "scheduler"))
         # a top-level mel_config.json is read too, as torch_import.py:531 reads it

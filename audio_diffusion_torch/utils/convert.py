@@ -4,8 +4,10 @@ The layout rules of ``audio_diffusion_tpu/utils/torch_export.py``
 (torch_export.py:73-149, 181-212): conv kernels HWIO -> OIHW, dense kernels
 (I, O) -> (O, I), norm ``scale`` -> ``weight``, self-attention ``to_out`` ->
 ``to_out.0``, diffusers key names. The result is a dict of f32 numpy arrays;
-``load_state_dict`` takes it through :func:`to_torch`. Cross-attention
-(conditional) trees wait for ROADMAP Queue 1 item 9.
+``load_state_dict`` takes it through :func:`to_torch`. Conditional
+``Transformer2D`` projections are Linear (``use_linear_projection``), as the
+JAX export writes them. :func:`audio_encoder_state_dict` is the inverse of
+``torch_import.py::convert_audio_encoder`` (torch_import.py:414-441).
 """
 
 from __future__ import annotations
@@ -54,10 +56,34 @@ def _self_attention(sd: dict, prefix: str, p: dict) -> None:
     _dense(sd, f"{prefix}.to_out.0", p["to_out"])
 
 
+def _cross_attention(sd: dict, prefix: str, p: dict) -> None:
+    for name in ("to_q", "to_k", "to_v"):
+        _dense(sd, f"{prefix}.{name}", p[name])
+    _dense(sd, f"{prefix}.to_out.0", p["to_out"])
+
+
+def _feed_forward(sd: dict, prefix: str, p: dict) -> None:
+    _dense(sd, f"{prefix}.net.0.proj", p["proj_in"])
+    _dense(sd, f"{prefix}.net.2", p["proj_out"])
+
+
+def _transformer_block(sd: dict, prefix: str, p: dict) -> None:
+    for i in (1, 2, 3):
+        _norm(sd, f"{prefix}.norm{i}", p[f"norm{i}"])
+    _cross_attention(sd, f"{prefix}.attn1", p["attn1"])
+    _cross_attention(sd, f"{prefix}.attn2", p["attn2"])
+    _feed_forward(sd, f"{prefix}.ff", p["ff"])
+
+
+def _transformer2d(sd: dict, prefix: str, p: dict) -> None:
+    _norm(sd, f"{prefix}.norm", p["norm"])
+    _dense(sd, f"{prefix}.proj_in", p["proj_in"])
+    _dense(sd, f"{prefix}.proj_out", p["proj_out"])
+    _transformer_block(sd, f"{prefix}.transformer_blocks.0", p["transformer_blocks_0"])
+
+
 def unet_state_dict(params: dict, config) -> Dict[str, np.ndarray]:
-    """flax ``UNet2D`` params (unconditional) -> ``models.unet2d.UNet2D`` state dict."""
-    if config.is_conditional:
-        raise NotImplementedError("conditional UNet conversion waits for ROADMAP Queue 1 item 9")
+    """flax ``UNet2D`` params -> ``models.unet2d.UNet2D`` state dict."""
     sd: Dict[str, np.ndarray] = {}
     _dense(sd, "time_embedding.linear_1", params["time_embedding"]["linear_1"])
     _dense(sd, "time_embedding.linear_2", params["time_embedding"]["linear_2"])
@@ -71,18 +97,25 @@ def unet_state_dict(params: dict, config) -> Dict[str, np.ndarray]:
             _resnet(sd, f"down_blocks.{i}.resnets.{j}", params[f"down_{i}_res_{j}"])
             if block_type == "AttnDownBlock2D":
                 _self_attention(sd, f"down_blocks.{i}.attentions.{j}", params[f"down_{i}_attn_{j}"])
+            elif block_type == "CrossAttnDownBlock2D":
+                _transformer2d(sd, f"down_blocks.{i}.attentions.{j}", params[f"down_{i}_xattn_{j}"])
         if i != n_blocks - 1:
             _conv(sd, f"down_blocks.{i}.downsamplers.0.conv", params[f"down_{i}_downsample"]["conv"])
 
     _resnet(sd, "mid_block.resnets.0", params["mid_res_0"])
     _resnet(sd, "mid_block.resnets.1", params["mid_res_1"])
-    _self_attention(sd, "mid_block.attentions.0", params["mid_attn"])
+    if config.is_conditional:
+        _transformer2d(sd, "mid_block.attentions.0", params["mid_xattn"])
+    else:
+        _self_attention(sd, "mid_block.attentions.0", params["mid_attn"])
 
     for i, block_type in enumerate(config.up_block_types):
         for j in range(config.layers_per_block + 1):
             _resnet(sd, f"up_blocks.{i}.resnets.{j}", params[f"up_{i}_res_{j}"])
             if block_type == "AttnUpBlock2D":
                 _self_attention(sd, f"up_blocks.{i}.attentions.{j}", params[f"up_{i}_attn_{j}"])
+            elif block_type == "CrossAttnUpBlock2D":
+                _transformer2d(sd, f"up_blocks.{i}.attentions.{j}", params[f"up_{i}_xattn_{j}"])
         if i != n_blocks - 1:
             _conv(sd, f"up_blocks.{i}.upsamplers.0.conv", params[f"up_{i}_upsample"]["conv"])
     return sd
@@ -120,8 +153,32 @@ def vae_state_dict(params: dict, config) -> Dict[str, np.ndarray]:
     return sd
 
 
+def _batch_norm(sd: dict, name: str, p: dict, stats: dict) -> None:
+    _norm(sd, name, p)
+    _put(sd, f"{name}.running_mean", stats["mean"])
+    _put(sd, f"{name}.running_var", stats["var"])
+    sd[f"{name}.num_batches_tracked"] = np.array(0, dtype=np.int64)  # a torch buffer flax does not keep
+
+
+def audio_encoder_state_dict(variables: dict) -> Dict[str, np.ndarray]:
+    """flax ``AudioEncoder`` variables ``{params, batch_stats}`` -> the
+    reference's (and ``models.audio_encoder.AudioEncoder``'s) state dict."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd: Dict[str, np.ndarray] = {}
+    n_blocks = sum(k.startswith("conv_block_") for k in params)
+    for i in range(n_blocks):
+        p, prefix = params[f"conv_block_{i}"], f"conv_blocks.{i}"
+        _conv(sd, f"{prefix}.sep_conv.depthwise", p["sep_conv"]["depthwise"])  # (3, 3, 1, C) -> (C, 1, 3, 3)
+        _conv(sd, f"{prefix}.sep_conv.pointwise", p["sep_conv"]["pointwise"])
+        _batch_norm(sd, f"{prefix}.batch_norm", p["batch_norm"], stats[f"conv_block_{i}"]["batch_norm"])
+    _dense(sd, "dense_block.dense", params["dense"])
+    _batch_norm(sd, "dense_block.batch_norm", params["dense_norm"], stats["dense_norm"])
+    _dense(sd, "embedding", params["embedding"])
+    return sd
+
+
 def to_torch(sd: Dict[str, np.ndarray]) -> dict:
     """numpy state dict -> tensors for ``module.load_state_dict(..., strict=True)``."""
     import torch
 
-    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).reshape(np.shape(v)) for k, v in sd.items()}

@@ -5,7 +5,8 @@ A copy of the layout parts of ``audio_diffusion_tpu/utils/torch_export.py``
 torch_export.py:152-231) and ``torch_import.py`` (``unet_config_from_diffusers``,
 ``vae_config_from_diffusers``, torch_import.py:222-299), so a directory that
 either package writes loads in the other. The port's state-dict keys already
-are the diffusers keys (``utils/convert.py``), so weights need no mapping:
+are the diffusers keys (``utils/convert.py``), so weights need no mapping
+beyond squeezing 1x1-conv projections (:func:`linear_from_conv1x1`):
 ``diffusion_pytorch_model.bin`` is written with ``torch.save`` and read with
 ``torch.load(weights_only=True)``. ``.safetensors`` weights need the
 ``safetensors`` package, which the port does not use: such a directory raises.
@@ -125,14 +126,26 @@ def read_json(path: str) -> dict:
 
 
 def save_state_dict(module: torch.nn.Module, model_dir: str) -> None:
-    """Write ``module``'s f32 weights as ``diffusion_pytorch_model.bin`` (on
-    the CPU), through a temporary file and a rename, so an interrupted save
-    leaves no truncated file behind."""
+    """Write ``module``'s weights as ``diffusion_pytorch_model.bin`` (on the
+    CPU; floating tensors as f32, integer buffers such as BatchNorm's
+    ``num_batches_tracked`` as they are), through a temporary file and a
+    rename, so an interrupted save leaves no truncated file behind."""
     os.makedirs(model_dir, exist_ok=True)
-    sd = {k: v.detach().to("cpu", torch.float32).contiguous() for k, v in module.state_dict().items()}
+    sd = {k: v.detach().to("cpu", torch.float32 if v.is_floating_point() else v.dtype).contiguous()
+          for k, v in module.state_dict().items()}
     path = os.path.join(model_dir, WEIGHTS_NAME)
     torch.save(sd, path + ".tmp")
     os.replace(path + ".tmp", path)
+
+
+def linear_from_conv1x1(sd: Dict[str, torch.Tensor], module: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """Squeeze (O, I, 1, 1) weights stored for what ``module`` holds as
+    Linear (O, I): a conditional UNet saved with ``use_linear_projection:
+    false`` keeps its Transformer2D ``proj_in``/``proj_out`` as 1x1 convs, as
+    the JAX importer accepts (torch_import.py:60-64, :110-116)."""
+    own = module.state_dict()
+    return {k: v[:, :, 0, 0] if v.dim() == 4 and v.shape[2:] == (1, 1) and k in own and own[k].dim() == 2 else v
+            for k, v in sd.items()}
 
 
 def load_state_dict(model_dir: str) -> Dict[str, torch.Tensor]:

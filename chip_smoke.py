@@ -7,7 +7,8 @@ Phases, one line each (plus detail lines):
   1. build   the CUDA kernels from ``audio_diffusion_torch/csrc`` with nvcc
   2. gn      the GroupNorm+SiLU kernel vs its plain PyTorch version on every
              route: each (C, H, W) the latent-256 UNet gives it (batch 1 and
-             32), the pixel-256 UNet's largest slabs and a pixel-512 slab;
+             32) and the conditional-latent-512 UNet (batch 1 and 16), the
+             pixel-256 UNet's largest slabs and a pixel-512 slab;
              f32 and bf16, eps 1e-5 and 1e-6, batch rows bitwise independent.
              Then the 64 calls of one UNet forward timed three ways: CUDA
              events around eager calls, replayed from a CUDA graph, and
@@ -35,8 +36,21 @@ Phases, one line each (plus detail lines):
              wav; 64 GroupNorm+SiLU and 6 attention launches per denoise step
              of every served batch; wav and json PCM identical; a seed bitwise
              the same with other companions in its tier; /healthz figures
+  7. cond    the conditional tier at the flagship's full width: the
+             cross-attention UNet (conditional_config, 64x64 latents, bf16,
+             fused GroupNorm), the 512 VAE and Mel, DDIM at 50 steps, seeded
+             random weights. The AudioEncoder (f32) encodes 4 synthetic clips
+             on the card, held against its CPU forward; batch-1 and -16
+             requests with those encodings through ``__call__`` (44 GroupNorm+
+             SiLU and no attention-kernel launches per UNet forward), the
+             conditioning shown live, an f32 forward against the CPU, the UNet
+             forward at batch 16 split into GroupNorm, SDPA and the rest, the
+             512 fidelity gates, and 4 encoded HTTP requests through
+             ``make_server`` in one batch, a seed bitwise the same with other
+             companions
 Then one JSON line with each kernel's launches (``launches``: the [main]
-requests; ``serve_launches``: the [serve] traffic), error and times, the card's
+requests; ``serve_launches``: the [serve] traffic; ``cond_launches``: the
+[cond] requests), error and times, the card's
 name and power limit as nvidia-smi prints them, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without a CUDA device it exits non-zero at once and prints no result.
@@ -45,6 +59,7 @@ without a CUDA device it exits non-zero at once and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -73,6 +88,14 @@ SERVE_TIER = 8  # the server's largest batch tier
 SERVE_ETA = 0.5
 SERVE_START_STEP = 25
 SERVE_REQUESTS = {"generate": 16, "audio_to_audio": 4, "eta": 4}
+# The conditional tier (BASELINE.json config 5): 512x512 audio through the VAE to 64x64 latents.
+COND_REQUESTS = ((1, 201), (16, 202))  # (batch, generator seed)
+COND_NORMS = 44  # GroupNorm+SiLU calls per UNet forward: 22 ResnetBlock2D x 2
+COND_SDPA = 32  # SDPA calls per UNet forward: 16 Transformer2D x (attn1, attn2)
+COND_TIMED_BATCH = 16
+COND_SERVE_TIER = 4
+ENCODER_CLIPS = 4  # synthetic 10 s clips at 22,050 Hz, one encoder slice each
+GL_BOUND_512 = 3.21 + 1.1  # bench.py:211-213, 512x512 hop 512
 
 
 def fail(msg: str) -> None:
@@ -144,29 +167,38 @@ def phase_build():
     return lib
 
 
-def slice_norm_shapes(cfg):
-    """(C, H, W) of the 64 fused GroupNorm calls of one UNet forward, in order,
-    recorded by hooks on a batch-1 forward on the CPU (plain path)."""
+@functools.lru_cache(maxsize=None)
+def slice_shapes(cfg):
+    """(C, H, W) of the fused GroupNorm calls and of the Transformer2D inputs
+    of one UNet forward, in order, recorded by hooks on a batch-1 forward on
+    the CPU (plain path)."""
     import torch
 
-    from audio_diffusion_torch.models.unet2d import ResnetBlock2D, UNet2D
+    from audio_diffusion_torch.models.unet2d import ResnetBlock2D, Transformer2D, UNet2D
 
     unet = UNet2D(cfg)
-    calls = []
+    norms, transformers = [], []
 
-    def hook(mod, args):
-        x = args[0]
-        _, c, h, w = x.shape
-        calls.append((c, h, w))
-        calls.append((mod.norm2.num_channels, h, w))
+    def norm_hook(mod, args):
+        _, c, h, w = args[0].shape
+        norms.append((c, h, w))
+        norms.append((mod.norm2.num_channels, h, w))
 
     for m in unet.modules():
         if isinstance(m, ResnetBlock2D):
-            m.register_forward_pre_hook(hook)
+            m.register_forward_pre_hook(norm_hook)
+        elif isinstance(m, Transformer2D):
+            m.register_forward_pre_hook(lambda mod, args: transformers.append(tuple(args[0].shape[1:])))
     h, w = cfg.sample_hw()
+    context = torch.zeros(1, 1, cfg.cross_attention_dim) if cfg.is_conditional else None
     with torch.inference_mode():
-        unet(torch.zeros(1, h, w, cfg.in_channels), torch.zeros(1, dtype=torch.long))
-    return calls
+        unet(torch.zeros(1, h, w, cfg.in_channels), torch.zeros(1, dtype=torch.long), context)
+    return tuple(norms), tuple(transformers)
+
+
+def slice_norm_shapes(cfg):
+    """(C, H, W) of the fused GroupNorm calls of one UNet forward, in order."""
+    return list(slice_shapes(cfg)[0])
 
 
 def gn_bytes(x) -> int:
@@ -199,7 +231,7 @@ def card_exp_per_s() -> float:
     return EXP_PER_CLOCK_PER_SM * torch.cuda.get_device_properties(0).multi_processor_count * mhz * 1e6
 
 
-def phase_groupnorm(cfg, card: str):
+def phase_groupnorm(cfg, card: str, cond_cfg):
     import torch
     import torch.nn.functional as F
 
@@ -208,14 +240,18 @@ def phase_groupnorm(cfg, card: str):
     calls = slice_norm_shapes(cfg)
     if len(calls) != 64:
         fail(f"expected 64 GroupNorm calls per UNet forward, recorded {len(calls)}")
+    cond_calls = slice_norm_shapes(cond_cfg)
+    if len(cond_calls) != COND_NORMS:
+        fail(f"expected {COND_NORMS} GroupNorm calls per conditional UNet forward, recorded {len(cond_calls)}")
     shapes = sorted(set(calls))
+    cond_shapes = sorted(set(cond_calls) - set(calls))
     groups = cfg.norm_num_groups
     gen = torch.Generator(device="cuda").manual_seed(0)
     # The latent-256 shapes at batch 1 and 32, then the pixel-256 UNet's two
     # largest slabs (cluster route), a pixel-512 slab (cluster in bf16,
     # reread in f32), and one group of 2 x 640 x 640 (in f32 a 16-CTA cluster
     # whose every CTA holds the most shared memory a plan gives it).
-    checks = [(s, groups, (1, 32)) for s in shapes] + [
+    checks = [(s, groups, (1, 32)) for s in shapes] + [(s, groups, (1, COND_TIMED_BATCH)) for s in cond_shapes] + [
         ((128, 256, 256), groups, (1, 2)), ((256, 256, 256), groups, (2,)), ((128, 512, 512), groups, (1, 2)),
         ((2, 640, 640), 1, (2,))]
     err = {"f32": 0.0, "bf16_ulps": 0.0}
@@ -253,7 +289,8 @@ def phase_groupnorm(cfg, card: str):
                     del x, y, ref, d
     if set(routes) != {"warp", "block", "cluster", "reread"}:
         fail(f"the checks covered routes {sorted(routes)}, not all four")
-    print(f"[gn] ok: {n} checks over {len(checks)} (C,H,W) shapes, routes {routes}; f32 max err {err['f32']:.3g}, "
+    print(f"[gn] ok: {n} checks over {len(checks)} (C,H,W) shapes ({len(cond_shapes)} of them only the conditional "
+          f"UNet's), routes {routes}; f32 max err {err['f32']:.3g}, "
           f"bf16 max {err['bf16_ulps']:.3f} ulp; batch rows bitwise independent")
 
     # Time: the 64 calls of one UNet forward at batch 32, bf16 (eps 1e-5).
@@ -551,6 +588,41 @@ def _concurrently(host: str, port: int, bodies: list) -> list:
     return out
 
 
+def _one_batch_images(server, bodies: list, tier: int, phase: str) -> list:
+    """POST ``bodies`` at once as json requests; their uint8 spectrograms, after
+    checking that the batcher ran them as one batch of ``tier``."""
+    import numpy as np
+
+    host, port = server.address[:2]
+    n0 = len(server.batcher.stats)
+    out = [np.asarray(json.loads(data)["image"], dtype=np.uint8)
+           for _, _, data in _concurrently(host, port, [dict(b, format="json") for b in bodies])]
+    got = [(s["n"], s["tier"]) for s in list(server.batcher.stats)[n0:]]
+    if got != [(len(bodies), tier)]:
+        fail(f"{phase} expected one batch of {len(bodies)} at tier {tier}, the batcher ran {got}")
+    return out
+
+
+def _check_wavs(bodies, responses, mel, phase: str) -> int:
+    """Every response an audio/wav of the Mel's rate and full length, not silent; returns the frame count."""
+    import io
+    import wave
+
+    import numpy as np
+
+    n_frames = (mel.x_res - 1) * mel.hop_length
+    for body, (_, ctype, data) in zip(bodies, responses):
+        if ctype != "audio/wav":
+            fail(f"{phase} seed {body['seed']}: content type {ctype}")
+        with wave.open(io.BytesIO(data)) as w:
+            pcm = np.frombuffer(w.readframes(w.getnframes()), dtype=np.int16)
+            if w.getframerate() != mel.get_sample_rate() or len(pcm) != n_frames:
+                fail(f"{phase} seed {body['seed']}: wav of {len(pcm)} frames at {w.getframerate()} Hz")
+        if not np.abs(pcm.astype(np.int32)).max() > 1000:
+            fail(f"{phase} seed {body['seed']}: silent or degenerate audio")
+    return n_frames
+
+
 def step_noise_ms(batch: int, hw, reps: int = 5) -> dict:
     """Host wall (ms, with a synchronize) to draw the variance noise of a
     ``STEPS``-step request from ``batch`` per-row generators: each row's whole
@@ -691,15 +763,7 @@ def phase_serve(pipe, card: str):
         if launches != want:
             fail(f"[serve] launches {launches} over {len(batches)} batches of {denoise_steps} denoise steps in all; "
                  f"expected {want}")
-        for body, (_, ctype, data) in zip(bodies, responses):
-            if ctype != "audio/wav":
-                fail(f"[serve] seed {body['seed']}: content type {ctype}")
-            with wave.open(io.BytesIO(data)) as w:
-                pcm = np.frombuffer(w.readframes(w.getnframes()), dtype=np.int16)
-                if w.getframerate() != mel.get_sample_rate() or len(pcm) != n_frames:
-                    fail(f"[serve] seed {body['seed']}: wav of {len(pcm)} frames at {w.getframerate()} Hz")
-            if not np.abs(pcm.astype(np.int32)).max() > 1000:
-                fail(f"[serve] seed {body['seed']}: silent or degenerate audio")
+        _check_wavs(bodies, responses, mel, "[serve]")
         print(f"[serve] {len(bodies)} concurrent requests over HTTP ({SERVE_REQUESTS}) in {wall:.4f} s: "
               f"{len(bodies) / wall:.4f} requests/s; {len(batches)} batches (n/tier/denoise steps "
               f"{[(s['n'], s['tier'], s['steps']) for s in batches]}); launches {launches} = 64 and 6 per denoise "
@@ -714,13 +778,7 @@ def phase_serve(pipe, card: str):
 
         # A seed re-sent into a batch of the same tier with other companions.
         def images(bodies, tier):
-            n0 = len(server.batcher.stats)
-            out = [np.asarray(json.loads(data)["image"], dtype=np.uint8)
-                   for _, _, data in _concurrently(host, port, [dict(b, format="json") for b in bodies])]
-            got = [(s["n"], s["tier"]) for s in list(server.batcher.stats)[n0:]]
-            if got != [(len(bodies), tier)]:
-                fail(f"[serve] expected one batch of {len(bodies)} at tier {tier}, the batcher ran {got}")
-            return out
+            return _one_batch_images(server, bodies, tier, "[serve]")
 
         same_tier = {}
         for name, tier, extra in (("eta 0", SERVE_TIER, {}), (f"eta {SERVE_ETA}", 4, {"eta": SERVE_ETA})):
@@ -842,7 +900,7 @@ def phase_unet_reference():
     print(f"[ref] ok: f32 UNet forward, card (kernels) vs CPU (plain): max abs err {err:.3g} (tol {tol:.3g})")
 
 
-def phase_fidelity(pipe, card: str):
+def phase_fidelity(pipe, card: str, gl_bound: float = GL_BOUND):
     import numpy as np
     import torch
 
@@ -860,10 +918,10 @@ def phase_fidelity(pipe, card: str):
         rec = torch.nn.functional.pad(rec, (0, mel.slice_size - rec.shape[0]))
         img2 = mel.spectrogram_images_from_audio(rec[None])
         maes[proj] = (img.float() - img2.float()).abs().mean().item()
-        if not maes[proj] < GL_BOUND:
-            fail(f"GL round-trip MAE ({proj}) {maes[proj]:.4f} >= {GL_BOUND}")
+        if not maes[proj] < gl_bound:
+            fail(f"GL round-trip MAE ({proj}) {maes[proj]:.4f} >= {gl_bound}")
 
-    x = (img.float() / 255.0 * 2 - 1)[..., None]  # (1, 256, 256, 1)
+    x = (img.float() / 255.0 * 2 - 1)[..., None]  # (1, y_res, x_res, 1)
     vae32 = AutoencoderKL(dataclasses.replace(pipe.vqvae.config, dtype="float32"))
     vae32.load_state_dict(pipe.vqvae.state_dict(), strict=True)
     vae32 = vae32.to("cuda").eval()
@@ -873,9 +931,324 @@ def phase_fidelity(pipe, card: str):
     vae_mae = (rec_b - rec_32).abs().mean().item() * 127.5
     if not vae_mae < VAE_BOUND:
         fail(f"bf16 VAE round trip drifted {vae_mae:.4f} uint8-MAE from f32 (bound {VAE_BOUND})")
-    print(f"[fidelity] ok: gl_roundtrip_mae fft {maes['fft']:.4f}, matmul {maes['matmul']:.4f} (< {GL_BOUND:.2f}); "
-          f"vae_dtype_mae {vae_mae:.4f} (< {VAE_BOUND:.2f})  [{card}]")
+    print(f"[fidelity] ok at {mel.y_res}x{mel.x_res} hop {mel.hop_length}: gl_roundtrip_mae fft {maes['fft']:.4f}, "
+          f"matmul {maes['matmul']:.4f} (< {gl_bound:.2f}); vae_dtype_mae {vae_mae:.4f} (< {VAE_BOUND:.2f})  [{card}]")
     return maes, vae_mae
+
+
+# ------------------------------------------------------------ conditional tier
+
+def cond_config():
+    """The flagship's UNet: conditional_config at 64x64 latents, 100-d encodings, bf16, fused GroupNorm."""
+    from audio_diffusion_torch.models import conditional_config
+
+    return conditional_config((64, 64), cross_attention_dim=100, dtype="bfloat16", fused_groupnorm=True)
+
+
+def build_cond_pipeline():
+    """Conditional-latent-512 at full width: the LDM VAE that takes 512x512 to
+    64x64 latents, the cross-attention UNet, Mel 512x512 hop 512, DDIM."""
+    import torch
+
+    from audio_diffusion_torch.mel import Mel
+    from audio_diffusion_torch.models import AutoencoderKL, UNet2D, VAEConfig
+    from audio_diffusion_torch.pipelines import AudioDiffusionPipeline
+    from audio_diffusion_torch.schedulers import DDIMScheduler
+
+    vae_cfg = VAEConfig(sample_size=512, dtype="bfloat16")
+    if vae_cfg.latent_hw(512, 512) != cond_config().sample_hw():
+        fail(f"the 512 VAE gives {vae_cfg.latent_hw(512, 512)} latents, the UNet takes {cond_config().sample_hw()}")
+    vae = AutoencoderKL(vae_cfg).init_params(torch.Generator().manual_seed(11))
+    unet = UNet2D(cond_config()).init_params(torch.Generator().manual_seed(10))
+    mel = Mel(x_res=512, y_res=512, hop_length=512, device="cuda")
+    return AudioDiffusionPipeline(unet, mel, DDIMScheduler(), vae, device="cuda")
+
+
+def encoder_clips(n: int, seed: int) -> list:
+    """``n`` clips of 10 s at 22,050 Hz: three sines of random pitch and level plus noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(10 * 22050) / 22050
+    return [(sum(a * np.sin(2 * np.pi * f * t) for f, a in zip(rng.uniform(110, 1760, 3), rng.uniform(0.1, 0.4, 3)))
+             + 0.05 * rng.standard_normal(t.size)).astype(np.float32) for _ in range(n)]
+
+
+def phase_audio_encoder(card: str):
+    """The full-width AudioEncoder (f32, seeded weights, perturbed BatchNorm
+    running statistics) encodes the clips on the card; its forward on the
+    same mel images is held against the CPU's. Returns the (n, 100) encodings."""
+    import copy
+
+    import torch
+
+    from audio_diffusion_torch.models import AudioEncoder
+
+    enc = AudioEncoder().init_params(torch.Generator().manual_seed(12))
+    g = torch.Generator().manual_seed(13)
+    with torch.no_grad():
+        for m in enc.modules():
+            if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+                m.running_mean.normal_(0.0, 0.1, generator=g)
+                m.running_var.uniform_(0.5, 1.5, generator=g)
+    cpu = copy.deepcopy(enc).eval()
+    dev = enc.to("cuda").eval()
+    clips = encoder_clips(ENCODER_CLIPS, 14)
+    dev.encode(clips)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    encodings = dev.encode(clips)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    images = []
+    hook = dev.register_forward_pre_hook(lambda mod, args: images.append(args[0]))
+    again = dev.encode(clips)
+    hook.remove()
+    x = images[0]
+    if tuple(x.shape) != (ENCODER_CLIPS, 1, 96, 216) or tuple(encodings.shape) != (ENCODER_CLIPS, 100):
+        fail(f"AudioEncoder: images {tuple(x.shape)}, encodings {tuple(encodings.shape)}")
+    with torch.inference_mode():
+        ref = cpu(x.cpu())  # one slice per clip, so the average pool is the row itself
+        forward_ms = cuda_time_ms(lambda: dev(x), 20)
+    err = (encodings.cpu() - ref).abs().max().item()
+    tol = 1e-4 * max(1.0, ref.abs().max().item())  # cuDNN/cuBLAS vs CPU sum order over a 41,472-long dot, TF32 off
+    if not (torch.isfinite(encodings).all() and err <= tol and torch.equal(again, encodings)):
+        fail(f"AudioEncoder on the card vs CPU: max abs err {err} > {tol} (or not repeatable)")
+    print(f"[cond] AudioEncoder (f32, full width, 41,472-wide dense) encoded {ENCODER_CLIPS} clips of 10 s on the card: "
+          f"{wall_ms:.4f} ms wall (mel + forward), forward alone {forward_ms:.4f} ms (CUDA events); against the CPU "
+          f"forward max abs err {err:.3g} (tol {tol:.3g}); encodings {tuple(encodings.shape)}  [{card}]")
+    return encodings
+
+
+def _cond_encoding(encodings, b: int):
+    """(b, 100): row i takes clip i mod n's encoding."""
+    return encodings[[i % encodings.shape[0] for i in range(b)]]
+
+
+def phase_cond(pipe, encodings, card: str):
+    """Batch-1 and -16 requests of 50 DDIM steps with the clips' encodings
+    through ``__call__``; 44 GroupNorm+SiLU launches and no attention-kernel
+    launch per UNet forward. Then one generator, two encodings: two images."""
+    import numpy as np
+    import torch
+
+    from audio_diffusion_torch.ops import attention as at
+    from audio_diffusion_torch.ops import fused_groupnorm as gn
+    from audio_diffusion_torch.pipelines.pipeline import pcm16_quantize
+
+    h, w = pipe.mel.y_res, pipe.mel.x_res
+    counters = (gn.group_norm_silu, at.flash_mha)
+    warm = {}
+    for b, seed in COND_REQUESTS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe(batch_size=b, steps=STEPS, generator=torch.Generator(device="cuda").manual_seed(seed),
+             encoding=_cond_encoding(encodings, b), return_arrays=True)
+        torch.cuda.synchronize()
+        warm[b] = time.perf_counter() - t0
+
+    for c in counters:
+        c.launches = 0
+    for b, seed in COND_REQUESTS:
+        before = [c.launches for c in counters]
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        raw, audio = pipe(batch_size=b, steps=STEPS, generator=gen, encoding=_cond_encoding(encodings, b),
+                          return_arrays=True)
+        pcm = pcm16_quantize(audio)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        finite = bool(torch.isfinite(audio).all().item())
+        raw_np, pcm_np = raw.cpu().numpy(), pcm.cpu().numpy()
+        delta = [c.launches - x for c, x in zip(counters, before)]
+        if raw_np.dtype != np.uint8 or raw_np.shape != (b, h, w):
+            fail(f"[cond] request b={b}: bad spectrograms {raw_np.dtype} {raw_np.shape}")
+        if not finite:
+            fail(f"[cond] request b={b}: non-finite audio before quantisation")
+        if pcm_np.dtype != np.int16 or pcm_np.shape != (b, (w - 1) * pipe.mel.hop_length) or \
+                not np.abs(pcm_np.astype(np.int32)).max() > 1000:
+            fail(f"[cond] request b={b}: silent or degenerate int16 audio {pcm_np.shape}")
+        want = [COND_NORMS * STEPS, 0]
+        if delta != want:
+            fail(f"[cond] request b={b}: launches (group_norm_silu, flash_mha) {delta}, expected {want}")
+        print(f"[cond] request batch={b} with encodings: {wall:.4f} s wall (warm-up call {warm[b]:.4f} s), "
+              f"{b / wall:.4f} samples/s, max_memory_allocated {peak_gib:.4f} GiB, launches group_norm_silu/flash_mha "
+              f"{delta}, audio {tuple(pcm_np.shape)} int16 peak {int(np.abs(pcm_np.astype(np.int32)).max())}, "
+              f"spectrogram std {raw_np.std():.3f}  [{card}]")
+    launches = {c.__name__: c.launches for c in counters}
+
+    two = [pipe(batch_size=1, steps=STEPS, generator=torch.Generator(device="cuda").manual_seed(203),
+                encoding=encodings[i:i + 1], return_images_only=True)[0].astype(np.int32) for i in (0, 1)]
+    diff = np.abs(two[0] - two[1])
+    if not diff.any():
+        fail("[cond] two encodings gave the same image from one generator: the conditioning is not live")
+    print(f"[cond] ok: {len(COND_REQUESTS)} requests at {STEPS} steps, launch counters {launches}; one generator, "
+          f"clip 0's and clip 1's encodings: mean |uint8 diff| {diff.mean():.4f}, max {diff.max()}, "
+          f"{100 * (diff > 0).mean():.2f}% of pixels differ")
+    return launches
+
+
+def phase_cond_reference(pipe, encodings):
+    """One f32 forward of the full-width conditional UNet on the card
+    (kernels, TF32 off) against the same weights on the CPU (plain)."""
+    import torch
+
+    from audio_diffusion_torch.models import UNet2D
+
+    unet = UNet2D(dataclasses.replace(pipe.unet.config, dtype="float32"))
+    unet.load_state_dict(pipe.unet.state_dict(), strict=True)
+    h, w = unet.config.sample_hw()
+    x = torch.randn((1, h, w, 1), generator=torch.Generator().manual_seed(3))
+    t = torch.tensor([500])
+    e = encodings[:1, None].cpu()
+    with torch.inference_mode():
+        ref = unet(x, t, e)
+        out = unet.to("cuda")(x.cuda(), t.cuda(), e.cuda()).cpu()
+    err = (out - ref).abs().max().item()
+    tol = 1e-3 * max(1.0, ref.abs().max().item())  # cuDNN, SDPA and the CPU sum in other orders
+    if not (torch.isfinite(out).all() and err <= tol):
+        fail(f"[cond] f32 conditional UNet on the card vs CPU: max abs err {err} > {tol}")
+    print(f"[cond] ok: f32 conditional UNet forward (batch 1, 64x64), card (kernels, SDPA) vs CPU (plain): max abs "
+          f"err {err:.3g} (tol {tol:.3g})")
+
+
+def sdpa_bound(q, k, exp_per_s: float):
+    """(bound ms, bound_by) of one SDPA call: bytes (q, k, v read, o written),
+    4*B*h*N*M*d tensor operations, or the B*h*N*M exponentials."""
+    b, h, n, d = q.shape
+    m = k.shape[2]
+    floors = {"bytes": (2 * n + 2 * m) * b * h * d * q.element_size() / HBM_BYTES_PER_S,
+              "tensor": 4 * b * h * n * m * d / BF16_FLOPS, "exp": b * h * n * m / exp_per_s}
+    bound_by = max(floors, key=floors.get)
+    return floors[bound_by] * 1e3, bound_by
+
+
+def phase_cond_timing(pipe, encodings, card: str) -> dict:
+    """The conditional UNet forward at batch 16 (bf16), by CUDA events and
+    replayed from a CUDA graph, split into its 44 GroupNorm+SiLU calls, its
+    32 SDPA calls (graph-replayed at their shapes) and the rest."""
+    import torch
+    import torch.nn.functional as F
+
+    from audio_diffusion_torch.ops import fused_groupnorm as gn
+
+    b, cfg = COND_TIMED_BATCH, pipe.unet.config
+    norms, transformers = slice_shapes(cfg)
+    if len(norms) != COND_NORMS or 2 * len(transformers) != COND_SDPA:
+        fail(f"[cond] {len(norms)} norms and {len(transformers)} Transformer2D per forward")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    h, w = cfg.sample_hw()
+    x = torch.randn((b, h, w, 1), generator=gen, device="cuda")
+    t = torch.full((b,), 500, dtype=torch.long, device="cuda")
+    e = _cond_encoding(encodings, b)[:, None]
+    bf16 = torch.bfloat16
+    with torch.inference_mode():
+        fwd = {"ms": cuda_time_ms(lambda: pipe.unet(x, t, e), 10), "graph_ms": graph_time_ms(lambda: pipe.unet(x, t, e), 10)}
+
+        xs = [torch.randn((b, c, hh, ww), generator=gen, device="cuda").to(bf16) for c, hh, ww in norms]
+        ps = [torch.randn(c, generator=gen, device="cuda") for c, _, _ in norms]
+
+        def norm_calls():
+            return [gn.fused_group_norm_silu(xi, p, p, cfg.norm_num_groups, cfg.norm_eps) for xi, p in zip(xs, ps)]
+
+        gn_t = {"ms": cuda_time_ms(norm_calls, 10), "graph_ms": graph_time_ms(norm_calls, 20),
+                "bound_ms": bytes_bound_ms(sum(gn_bytes(xi) for xi in xs))}
+
+        heads = cfg.attention_head_dim
+        calls = {}  # N -> [(q, k, v)]: attn1 over N keys, attn2 over the one encoding token
+        for c, hh, ww in transformers:
+            n, d = hh * ww, c // heads
+            for m in (n, 1):
+                q = torch.randn((b, n, heads, d), generator=gen, device="cuda").to(bf16).transpose(1, 2)
+                k, v = (torch.randn((b, m, heads, d), generator=gen, device="cuda").to(bf16).transpose(1, 2)
+                        for _ in range(2))
+                calls.setdefault(n, []).append((q, k, v))
+        exp_per_s = card_exp_per_s()
+        per_n = {}
+        for n, qkvs in sorted(calls.items(), reverse=True):
+            bounds = [sdpa_bound(q, k, exp_per_s) for q, k, _ in qkvs]
+            per_n[n] = {"calls": len(qkvs), "d": qkvs[0][0].shape[-1],
+                        "graph_ms": graph_time_ms(lambda: [F.scaled_dot_product_attention(*a) for a in qkvs], 10),
+                        "bound_ms": sum(bd for bd, _ in bounds), "bound_by": bounds[0][1]}
+        all_qkv = [a for qkvs in calls.values() for a in qkvs]
+        sdpa_t = {"ms": cuda_time_ms(lambda: [F.scaled_dot_product_attention(*a) for a in all_qkv], 10),
+                  "graph_ms": graph_time_ms(lambda: [F.scaled_dot_product_attention(*a) for a in all_qkv], 10),
+                  "bound_ms": sum(v["bound_ms"] for v in per_n.values())}
+    rest = fwd["graph_ms"] - gn_t["graph_ms"] - sdpa_t["graph_ms"]
+    print(f"[cond] UNet forward, batch {b}, bf16, ms: events {fwd['ms']:.4f}, graph-replayed {fwd['graph_ms']:.4f} = "
+          f"{COND_NORMS} GroupNorm+SiLU {gn_t['graph_ms']:.4f} (events {gn_t['ms']:.4f}, bound {gn_t['bound_ms']:.4f}) "
+          f"+ {COND_SDPA} SDPA {sdpa_t['graph_ms']:.4f} (events {sdpa_t['ms']:.4f}, bound {sdpa_t['bound_ms']:.4f}) "
+          f"+ the rest {rest:.4f}  [{card}]")
+    print("[cond] SDPA per forward by query length (calls, head dim, graph-replayed ms, bound ms (bound_by)): "
+          + "; ".join(f"N={n}: {v['calls']}, d={v['d']}, {v['graph_ms']:.4f}, {v['bound_ms']:.4f} ({v['bound_by']})"
+                      for n, v in per_n.items()) + f"  [{card}]")
+    return {"forward": fwd, "gn": gn_t, "sdpa": sdpa_t, "rest_graph_ms": rest}
+
+
+def phase_cond_serve(pipe, encodings, card: str):
+    """Save the conditional pipeline, load it through ``make_server`` (bf16,
+    fused GroupNorm, tiers up to 4), and send 4 concurrent HTTP requests with
+    distinct encodings: one batch, all 200 with full wavs, 44 GroupNorm+SiLU
+    launches per denoise step; then a seed bitwise the same with other companions."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from audio_diffusion_torch.ops import attention as at
+    from audio_diffusion_torch.ops import fused_groupnorm as gn
+    from audio_diffusion_torch.serving import make_server
+
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        pipe.save_pretrained(d)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        server = make_server(d, dtype="bfloat16", fused_groupnorm=True, device="cuda", port=0,
+                             max_batch=COND_SERVE_TIER, max_wait_ms=1000, steps=STEPS)
+        t_load = time.perf_counter() - t0
+    served = server.batcher.pipe
+    for a, b in ((served.unet, pipe.unet), (served.vqvae, pipe.vqvae)):
+        sa, sb = a.state_dict(), b.state_dict()
+        if a.config != b.config or sa.keys() != sb.keys() or not all(torch.equal(sa[k], sb[k]) for k in sa):
+            fail(f"[cond-serve] the loaded {type(a).__name__} differs from the saved one")
+    t0 = time.perf_counter()
+    server.batcher.warmup()
+    t_warm = time.perf_counter() - t0
+    rows = [encodings[i].tolist() for i in range(ENCODER_CLIPS)]
+    server.start()
+    counters = (gn.group_norm_silu, at.flash_mha)
+    try:
+        bodies = [{"seed": 400 + i, "encoding": [rows[i]]} for i in range(COND_SERVE_TIER)]
+        n_stats = len(server.batcher.stats)
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        responses = _concurrently(*server.address[:2], bodies)
+        wall = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in counters}
+        batches = [(s["n"], s["tier"], s["steps"]) for s in list(server.batcher.stats)[n_stats:]]
+        if batches != [(COND_SERVE_TIER, COND_SERVE_TIER, STEPS)]:
+            fail(f"[cond-serve] the {COND_SERVE_TIER} encoded requests ran as batches {batches}")
+        if launches != {"group_norm_silu": COND_NORMS * STEPS, "flash_mha": 0}:
+            fail(f"[cond-serve] launches {launches}, expected {COND_NORMS} GroupNorm+SiLU per denoise step, no attention")
+        n_frames = _check_wavs(bodies, responses, served.mel, "[cond-serve]")
+        first = _one_batch_images(server, [{"seed": 1000 + i, "encoding": [rows[i]]} for i in range(4)], 4,
+                                  "[cond-serve]")
+        second = _one_batch_images(server, [{"seed": 1000, "encoding": [rows[0]]}] + [
+            {"seed": 2000 + i, "encoding": [rows[(i + 2) % 4]]} for i in range(1, 4)], 4, "[cond-serve]")
+        if not np.array_equal(first[0], second[0]):
+            fail("[cond-serve] seed 1000 with clip 0's encoding gave another spectrogram with other companions")
+    finally:
+        server.stop()
+    print(f"[cond-serve] ok: saved in {t_save:.2f} s, loaded through make_server in {t_load:.2f} s (weights and configs "
+          f"equal), warmed tiers {server.batcher.tiers} in {t_warm:.2f} s; {COND_SERVE_TIER} concurrent HTTP requests "
+          f"with distinct encodings in {wall:.4f} s as one batch {batches}, all 200 with {n_frames}-frame wavs, "
+          f"launches {launches}; seed 1000 bitwise the same spectrogram with other companions and encodings  [{card}]")
+    return launches
 
 
 def main() -> int:
@@ -902,7 +1275,7 @@ def main() -> int:
 
     phase_build()
     cfg = unconditional_config(sample_size=(32, 32), dtype="bfloat16", fused_groupnorm=True)
-    gn_err, gn_t = phase_groupnorm(cfg, card)
+    gn_err, gn_t = phase_groupnorm(cfg, card, cond_config())
     at_err, at_t = phase_attention(card)
     phase_attention_sweep(card)
     phase_unet_reference()
@@ -915,17 +1288,31 @@ def main() -> int:
     phase_profile(pipe, card)
     phase_fidelity(pipe, card)
     serve_launches = phase_serve(pipe, card)
+    del pipe
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cond_pipe = build_cond_pipeline()
+    print(f"[cond] built the full-width conditional-latent-512 pipeline (bf16, fused GroupNorm) in "
+          f"{time.perf_counter() - t0:.2f} s")
+    encodings = phase_audio_encoder(card)
+    cond_launches = phase_cond(cond_pipe, encodings, card)
+    phase_cond_reference(cond_pipe, encodings)
+    phase_cond_timing(cond_pipe, encodings, card)
+    phase_fidelity(cond_pipe, card, GL_BOUND_512)
+    phase_cond_serve(cond_pipe, encodings, card)
 
     pallas_gn = "audio_diffusion_tpu/ops/pallas_groupnorm.py"
     gn_row = {"name": "group_norm_silu", "route": "cuda", "source": "audio_diffusion_torch/csrc/group_norm_silu.cu",
               "replaces": f"{pallas_gn}:51, {pallas_gn}:66",
               "launches": launches["group_norm_silu"], "launches_per_request": 64 * STEPS,
               "serve_launches": serve_launches["group_norm_silu"],
+              "cond_launches": cond_launches["group_norm_silu"], "cond_launches_per_request": COND_NORMS * STEPS,
               "max_abs_err": gn_err["f32"], "bf16_max_ulps": gn_err["bf16_ulps"]}
     at_row = {"name": "flash_mha", "route": "cuda", "source": "audio_diffusion_torch/csrc/mha.cu",
               "replaces": "audio_diffusion_tpu/ops/pallas_attention.py:55", "launches": launches["flash_mha"],
               "launches_per_request": 6 * STEPS, "serve_launches": serve_launches["flash_mha"],
-              "max_abs_err": at_err["f32"]}
+              "cond_launches": cond_launches["flash_mha"], "max_abs_err": at_err["f32"]}
     keys = ("ms", "graph_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_graph_ms")
     kernels = [{**gn_row, **{k: gn_t[k] for k in keys}}, {**at_row, **{k: at_t[k] for k in keys}}]
     for k in kernels:

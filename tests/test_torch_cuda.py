@@ -358,3 +358,35 @@ def test_from_pretrained_on_the_card_takes_the_kernels(tmp_path):
         assert raw.is_cuda and raw.shape == (2, 16, 16) and audio.dtype == torch.int16
         assert gn.group_norm_silu.launches - before[0] == want_gn
         assert at.flash_mha.launches - before[1] == n_attn * 2
+
+
+@pytest.mark.cuda
+def test_conditional_unet_on_the_card_takes_the_groupnorm_kernel():
+    """A small conditional UNet (f32, TF32 off) on the card: the GroupNorm+SiLU
+    kernel on every ResnetBlock2D norm and SDPA in CrossAttention, within
+    1e-4 of the same weights on the CPU (plain versions); no attention-kernel launch."""
+    _cuda()
+    from audio_diffusion_torch.models import UNet2D, UNetConfig
+    from audio_diffusion_torch.models.unet2d import ResnetBlock2D
+
+    cfg = UNetConfig(sample_size=(32, 32), block_out_channels=(32, 64),
+                     down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
+                     up_block_types=("UpBlock2D", "CrossAttnUpBlock2D"), layers_per_block=1, norm_num_groups=8,
+                     attention_head_dim=4, cross_attention_dim=24, fused_groupnorm=True)
+    unet = UNet2D(cfg).init_params(torch.Generator().manual_seed(0)).eval()
+    g = torch.Generator().manual_seed(1)
+    x, enc = torch.randn(2, 32, 32, 1, generator=g), torch.randn(2, 3, 24, generator=g)
+    t = torch.tensor([999, 10])
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            ref = unet(x, t, enc)
+            before = (gn.group_norm_silu.launches, at.flash_mha.launches)
+            out = unet.to("cuda")(x.cuda(), t.cuda(), enc.cuda())
+            torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    n_res = sum(isinstance(m, ResnetBlock2D) for m in unet.modules())
+    assert (gn.group_norm_silu.launches - before[0], at.flash_mha.launches - before[1]) == (2 * n_res, 0)
+    torch.testing.assert_close(out.cpu(), ref, rtol=0, atol=1e-4 * max(1.0, ref.abs().max().item()))

@@ -8,7 +8,10 @@
   callers and the worker keeps serving; QueueFull and per-group caps;
 - HTTP end to end: wav and json, 429 with Retry-After, audio-to-audio;
 - warmup calls the pipeline with every signature a live batch uses;
-- the per-seed noise is bitwise the JAX package's.
+- the per-seed noise is bitwise the JAX package's;
+- a conditional model: encoding requests share a batch (padding rows get zero
+  encodings), a seed is bitwise the same solo and co-batched, the encoding
+  checks hold, and JSON ``"encoding": [[...]]`` bodies over HTTP.
 """
 
 import base64
@@ -48,6 +51,24 @@ def _pipe():
 @pytest.fixture(scope="module")
 def pipe():
     return _pipe()
+
+
+CROSS = 8  # the tiny conditional model's cross_attention_dim
+
+
+@pytest.fixture(scope="module")
+def cond_pipe():
+    cfg = UNetConfig(sample_size=(RES, RES), block_out_channels=(8, 16),
+                     down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
+                     up_block_types=("UpBlock2D", "CrossAttnUpBlock2D"), layers_per_block=1, norm_num_groups=4,
+                     attention_head_dim=4, cross_attention_dim=CROSS, fused_groupnorm=True)
+    return AudioDiffusionPipeline(UNet2D(cfg).init_params(torch.Generator().manual_seed(1)),
+                                  Mel(x_res=RES, y_res=RES, hop_length=HOP, n_iter=8, device="cpu"),
+                                  DDIMScheduler(SchedulerConfig(num_train_timesteps=100)), device="cpu")
+
+
+def _encoding(seed):
+    return np.random.default_rng(seed).standard_normal((1, CROSS)).astype(np.float32)
 
 
 class CountingPipe:
@@ -113,10 +134,11 @@ class RecordingPipe(CountingPipe):
         return self._pipe(**kw)
 
 
-def _solo(pipe, seed, steps, eta=0.0, raw_audio=None, start_step=0):
+def _solo(pipe, seed, steps, eta=0.0, raw_audio=None, start_step=0, encoding=None):
     raw, _ = pipe(noise=_noise_for_seed(seed, RES, RES, 1)[None], steps=steps, eta=eta,
                   step_generator=[torch.Generator().manual_seed(seed)], raw_audio=raw_audio,
-                  start_step=start_step, return_arrays=True)
+                  start_step=start_step, encoding=None if encoding is None else encoding[None],
+                  return_arrays=True)
     return raw.numpy()[0]
 
 
@@ -486,3 +508,65 @@ def test_serve_cli_parser():
     assert a.max_batch == 32 and a.dtype == "bfloat16" and a.fused_groupnorm is True and a.warmup is False
     assert a.device == "cuda" and a.allow_etas == [0.5] and a.allow_start_steps == [25]
     assert parse_args(["--model", "m"]).fused_groupnorm is None
+
+
+@pytest.mark.parametrize("eta", [0.0, 1.0])
+def test_conditional_requests_share_a_batch_and_match_solo(cond_pipe, eta):
+    """Three encoded requests ride one tier-4 call under the pad policy (the
+    padding row gets a zero encoding); each is bitwise its solo call with the
+    same seed and encoding, and the same seed with another encoding gives
+    another spectrogram."""
+    counting = CountingPipe(cond_pipe)
+    batcher = DynamicBatcher(counting, max_batch=4, max_wait_ms=1500, steps=3, eta=eta, batch_policy="pad")
+    try:
+        futs = [batcher.submit(seed=s, encoding=_encoding(e)) for s, e in ((3, 3), (7, 7), (7, 8))]
+        results = [f.result(timeout=120) for f in futs]
+    finally:
+        batcher.close()
+    assert counting.call_batches == [4]
+    np.testing.assert_array_equal(results[1].image, _solo(cond_pipe, 7, 3, eta, encoding=_encoding(7)))
+    assert not np.array_equal(results[1].image, results[2].image), "the encoding must condition the output"
+
+
+def test_submit_validates_encoding_on_a_conditional_model(cond_pipe):
+    batcher = DynamicBatcher(cond_pipe, max_batch=2, max_wait_ms=10, steps=2)
+    try:
+        with pytest.raises(ValueError, match=f"cross_attention_dim={CROSS}"):
+            batcher.submit(encoding=np.zeros((1, 5), np.float32))
+        with pytest.raises(ValueError, match="seq length"):
+            batcher.submit(encoding=np.zeros((3, CROSS), np.float32))
+        with pytest.raises(ValueError, match="encoding= is required"):
+            batcher.submit(seed=0)
+        one_d = batcher.submit(seed=4, encoding=_encoding(4)[0]).result(timeout=120)  # (dim,) is a length-1 sequence
+        np.testing.assert_array_equal(one_d.image, _solo(cond_pipe, 4, 2, encoding=_encoding(4)))
+    finally:
+        batcher.close()
+
+
+def test_http_conditional_json_encodings(cond_pipe):
+    """Concurrent JSON bodies with ``"encoding": [[...]]`` after a warmup: one
+    batch, each image its solo call's; a wrong width answers 400."""
+    counting = CountingPipe(cond_pipe)
+    server = AudioDiffusionServer(counting, port=0, max_batch=2, max_wait_ms=1000, steps=2)
+    server.batcher.warmup()
+    warm = len(counting.call_batches)
+    server.start()
+    host, port = server.address[:2]
+    try:
+        results = {}
+        threads = [threading.Thread(target=lambda s=s: results.__setitem__(s, _post(
+            host, port, {"seed": s, "encoding": _encoding(s).tolist(), "format": "json"}))) for s in (5, 6)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+            assert not t.is_alive()
+        assert counting.call_batches[warm:] == [2]
+        for s, (resp, data) in results.items():
+            assert resp.status == 200
+            np.testing.assert_array_equal(np.asarray(json.loads(data)["image"], dtype=np.uint8),
+                                          _solo(cond_pipe, s, 2, encoding=_encoding(s)))
+        resp, data = _post(host, port, {"seed": 1, "encoding": [[0.0] * (CROSS + 1)]})
+        assert resp.status == 400 and b"cross_attention_dim" in data
+    finally:
+        server.stop()
