@@ -69,6 +69,10 @@ class DiagonalGaussian:
     def mode(self) -> torch.Tensor:
         return self.mean
 
+    def kl(self) -> torch.Tensor:
+        """KL to N(0, I), summed over the non-batch axes (vae.py:69-71)."""
+        return 0.5 * torch.sum(self.mean**2 + torch.exp(self.logvar) - 1.0 - self.logvar, dim=(1, 2, 3))
+
 
 class VAEResnetBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, groups: int = 32):

@@ -21,8 +21,12 @@ depend on the batch around it:
 
 :func:`flash_mha` takes views whose last dimension has stride 1 (the UNet's
 projections transposed to (B, heads, N, d), uncopied) and returns a view of
-a (B, N, heads, d) buffer. The kernel has no backward yet, so it refuses
-inputs that autograd would record.
+a (B, N, heads, d) buffer. It refuses inputs that autograd would record:
+the gradient path is :class:`FlashMHA`, whose forward is one :func:`flash_mha`
+launch and whose backward recomputes :func:`attention_reference` and
+differentiates it, as the JAX package's ``custom_vjp`` does
+(pallas_attention.py:100-117). That backward is plain PyTorch, not a kernel,
+because the reference's ``_bwd`` is plain jnp too.
 """
 
 from __future__ import annotations
@@ -61,6 +65,17 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (1.0 / math.sqrt(d))
     p = torch.softmax(s, dim=-1)
     return torch.matmul(p, v.float()).to(q.dtype)
+
+
+def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``reference_attention`` (pallas_attention.py:46-52) in its rounding
+    order: f32 scores, the 1/sqrt(d) scale, f32 softmax, the probabilities
+    cast to q's dtype before the product with v, the result in q's dtype.
+    :class:`FlashMHA` differentiates this function, as the JAX ``_bwd`` does."""
+    d = q.shape[-1]
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (1.0 / math.sqrt(d))
+    p = torch.softmax(s, dim=-1)
+    return torch.matmul(p.to(q.dtype), v).to(q.dtype)
 
 
 # ----------------------------------------------------------------- launch plan
@@ -165,8 +180,8 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_mha: q, k, v must share one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        raise RuntimeError("flash_mha has no backward yet (ROADMAP Queue 2); "
-                           "call it under torch.no_grad() or torch.inference_mode()")
+        raise RuntimeError("flash_mha has no backward of its own: under autograd call FlashMHA.apply(q, k, v) "
+                           "(or multi_head_attention), else torch.no_grad() or torch.inference_mode()")
     b, h, n, d = q.shape
     plan = _PLANS.get((n, d, q.dtype)) or attention_plan(n, d, q.dtype)
     dev = q.get_device()
@@ -187,11 +202,42 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor
 flash_mha.launches = 0
 
 
+class FlashMHA(torch.autograd.Function):
+    """The gradient path of :func:`flash_mha`, the port of its ``jax.custom_vjp``.
+
+    ``FlashMHA.apply(q, k, v, forward=None)``: the forward is ``forward(q, k,
+    v)``, :func:`flash_mha` (one launch) unless another callable is given (the
+    CPU tests pass :func:`attention_plain`), and saves q, k and v. The
+    backward recomputes :func:`attention_reference` from them and takes its
+    vector-Jacobian product with ``torch.autograd.grad``: gradients of the
+    inputs' shapes, in new tensors that alias nothing saved. ``backwards``
+    counts backward calls as ``flash_mha.launches`` counts forwards."""
+
+    backwards = 0
+
+    @staticmethod
+    def forward(ctx, q, k, v, forward=None):
+        ctx.save_for_backward(q, k, v)
+        return (forward or flash_mha)(q, k, v)
+
+    @staticmethod
+    def backward(ctx, grad):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            grads = torch.autograd.grad(attention_reference(*leaves), leaves, grad)
+        FlashMHA.backwards += 1
+        return (*grads, None)
+
+
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """softmax(q k^T / sqrt(d)) v over layout (B, heads, N, d). CPU tensors
-    take :func:`attention_plain`; CUDA tensors launch :func:`flash_mha` or raise."""
+    take :func:`attention_plain`; CUDA tensors launch :func:`flash_mha`, through
+    :class:`FlashMHA` when autograd records the call, or raise."""
     if q.is_cpu:
         return attention_plain(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashMHA.apply(q, k, v)
     return flash_mha(q, k, v)
 
 

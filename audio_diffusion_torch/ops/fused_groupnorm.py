@@ -13,8 +13,9 @@ How a slab is spread over the card is the :class:`LaunchPlan` of
 so a row's result does not depend on the batch around it. The wrapper counts
 its launches in ``.launches``. :func:`group_norm_silu_plain` is the same
 function in plain PyTorch; the dispatcher :func:`fused_group_norm_silu` takes
-it only for CPU tensors. The kernel has no backward yet, so the wrapper
-refuses inputs that autograd would record.
+it only for CPU tensors. The kernel has no backward (nor has the Pallas
+kernel: the JAX trainer builds its UNets with ``fused_groupnorm=False``), so
+the wrapper refuses inputs that autograd would record.
 """
 
 from __future__ import annotations
@@ -146,8 +147,8 @@ def group_norm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     if x.dim() != 4 or not x.is_contiguous():
         raise ValueError(f"group_norm_silu: expected a contiguous NCHW tensor, got shape {tuple(x.shape)}")
     if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad or bias.requires_grad):
-        raise RuntimeError("group_norm_silu has no backward yet (ROADMAP Queue 2); "
-                           "call it under torch.no_grad() or torch.inference_mode()")
+        raise RuntimeError("group_norm_silu has no backward: train with fused_groupnorm=False (as the trainer "
+                           "does), or call it under torch.no_grad() or torch.inference_mode()")
     b, c, h, w = x.shape
     plan = launch_plan(c, h, w, groups, x.dtype)
     dev = x.get_device()

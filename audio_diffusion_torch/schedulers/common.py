@@ -122,13 +122,26 @@ class SchedulerConfig(ConfigMixin):
     config_name = "scheduler_config.json"
 
 
-def add_noise(alphas_cumprod: np.ndarray, sample: torch.Tensor, noise: torch.Tensor, t) -> torch.Tensor:
-    """Forward process: sqrt(a_t) * sample + sqrt(1 - a_t) * noise, with
-    ``a_t = alphas_cumprod[t]`` for an int or a (B,) tensor ``t``."""
+def _alpha_at(alphas_cumprod: np.ndarray, sample: torch.Tensor, t) -> torch.Tensor:
+    """``alphas_cumprod[t]`` on the sample's device, shaped to broadcast over it."""
     a = torch.as_tensor(alphas_cumprod, device=sample.device)[torch.as_tensor(t, device=sample.device)]
     while a.dim() < sample.dim():
         a = a[..., None]
+    return a
+
+
+def add_noise(alphas_cumprod: np.ndarray, sample: torch.Tensor, noise: torch.Tensor, t) -> torch.Tensor:
+    """Forward process: sqrt(a_t) * sample + sqrt(1 - a_t) * noise, with
+    ``a_t = alphas_cumprod[t]`` for an int or a (B,) tensor ``t``."""
+    a = _alpha_at(alphas_cumprod, sample, t)
     return torch.sqrt(a) * sample + torch.sqrt(1.0 - a) * noise
+
+
+def velocity(alphas_cumprod: np.ndarray, sample: torch.Tensor, noise: torch.Tensor, t) -> torch.Tensor:
+    """The v-prediction training target sqrt(a_t) * noise - sqrt(1 - a_t) *
+    sample (ddim.py:63-68, ddpm.py:61-65), ``t`` an int or a (B,) tensor."""
+    a = _alpha_at(alphas_cumprod, sample, t)
+    return torch.sqrt(a) * noise - torch.sqrt(1.0 - a) * sample
 
 
 def predict_x0_and_eps(sample: torch.Tensor, model_output: torch.Tensor, alpha_prod_t: np.float32,

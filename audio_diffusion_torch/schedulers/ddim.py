@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from .common import (Schedule, SchedulerConfig, StepGenerator, add_noise, leading_timesteps, make_betas,
-                     predict_x0_and_eps, variance_noise)
+                     predict_x0_and_eps, variance_noise, velocity)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,6 +44,10 @@ class DDIMScheduler:
 
     def add_noise(self, sample: torch.Tensor, noise: torch.Tensor, t) -> torch.Tensor:
         return add_noise(self.alphas_cumprod, sample, noise, t)
+
+    def velocity(self, sample: torch.Tensor, noise: torch.Tensor, t) -> torch.Tensor:
+        """v-prediction target: v = sqrt(a_t) * noise - sqrt(1 - a_t) * sample."""
+        return velocity(self.alphas_cumprod, sample, noise, t)
 
     def _alpha_prev(self, prev_t: int) -> np.float32:
         return self.alphas_cumprod[prev_t] if prev_t >= 0 else self.final_alpha_cumprod

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from .common import (Schedule, SchedulerConfig, StepGenerator, add_noise, leading_timesteps, make_betas,
-                     predict_x0_and_eps, variance_noise)
+                     predict_x0_and_eps, variance_noise, velocity)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,6 +39,10 @@ class DDPMScheduler:
 
     def add_noise(self, sample: torch.Tensor, noise: torch.Tensor, t) -> torch.Tensor:
         return add_noise(self.alphas_cumprod, sample, noise, t)
+
+    def velocity(self, sample: torch.Tensor, noise: torch.Tensor, t) -> torch.Tensor:
+        """v-prediction target: v = sqrt(a_t) * noise - sqrt(1 - a_t) * sample."""
+        return velocity(self.alphas_cumprod, sample, noise, t)
 
     def step(self, model_output: torch.Tensor, t: int, sample: torch.Tensor, schedule: Schedule,
              generator: StepGenerator = None, noise: torch.Tensor | None = None) -> torch.Tensor:

@@ -9,11 +9,16 @@
 * **Per-request determinism.** A request's initial noise comes from ITS seed
   on the host (numpy PCG64, bitwise the JAX package's), and the variance noise
   of stochastic steps (DDPM, eta > 0) from a per-row ``torch.Generator``
-  seeded with it (schedulers/common.py::step_noises). Within one tier a row's
-  spectrogram is therefore bitwise the same for any co-batch; across tiers
-  cuDNN may pick other convolution algorithms per batch shape and round
-  differently. Griffin-Lim's initial phase is drawn batch-shaped, so audio
-  agrees across compositions to Griffin-Lim convergence, not bitwise.
+  seeded with it (schedulers/common.py::step_noises). A row's spectrogram is
+  therefore bitwise the same for any co-batch and, at eta 0, in any tier, as
+  in the JAX package. On a CUDA device that needs cuDNN off while a batch
+  runs (:meth:`DynamicBatcher._call_pipe`): cuDNN picks other convolution
+  kernels per batch shape, which round a row differently (chip_smoke.py's
+  ``[tier]`` names the calls; ``cudnn.deterministic`` does not help), and 50
+  denoise steps grow that rounding to whole uint8 levels; PyTorch's own
+  convolutions compute each row alone. PERF.md records what that costs.
+  Griffin-Lim's initial phase is drawn batch-shaped, so audio agrees across
+  compositions to Griffin-Lim convergence, not bitwise.
 * **One worker owns the device; copies overlap compute.** Requests enqueue
   holding only their seed and settings; one worker drains a settings group
   and makes ONE pipeline call per batch. On a CUDA device the outputs are
@@ -285,6 +290,19 @@ class DynamicBatcher:
     def _step_generators(self, seeds: Sequence[int]) -> list:
         return [torch.Generator(device=self.device).manual_seed(s) for s in seeds]
 
+    def _call_pipe(self, **kwargs):
+        """One pipeline call; on a CUDA device with cuDNN off for its length
+        (the module docstring's per-request determinism). Every kernel of the
+        call is chosen before it returns, so the flag is restored at once."""
+        if self.device.type != "cuda":
+            return self.pipe(**kwargs)
+        enabled = torch.backends.cudnn.enabled
+        torch.backends.cudnn.enabled = False
+        try:
+            return self.pipe(**kwargs)
+        finally:
+            torch.backends.cudnn.enabled = enabled
+
     def warmup(self) -> None:
         """Run every (tier, steps, eta, start_step) the server accepts once, up
         front, with the same arguments a live batch passes (per-row step
@@ -301,7 +319,7 @@ class DynamicBatcher:
             for steps in sorted(self.allowed_steps):
                 for eta in sorted(self.allowed_etas):
                     for start_step in [0] + sorted(s for s in self.allowed_start_steps if 0 < s < steps):
-                        self.pipe(
+                        self._call_pipe(
                             noise=noise, encoding=enc, steps=steps, eta=eta, start_step=start_step,
                             step_generator=self._step_generators([0] * tier),
                             raw_audio=np.zeros((tier, full), np.float32) if start_step else None,
@@ -387,7 +405,7 @@ class DynamicBatcher:
                 raw_audio[i, : len(p.audio)] = p.audio
 
         t_run = time.monotonic()
-        raw_dev, audios_dev = self.pipe(
+        raw_dev, audios_dev = self._call_pipe(
             noise=noise,
             encoding=encoding,
             raw_audio=raw_audio,

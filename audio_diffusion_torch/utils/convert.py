@@ -8,11 +8,14 @@ The layout rules of ``audio_diffusion_tpu/utils/torch_export.py``
 ``Transformer2D`` projections are Linear (``use_linear_projection``), as the
 JAX export writes them. :func:`audio_encoder_state_dict` is the inverse of
 ``torch_import.py::convert_audio_encoder`` (torch_import.py:414-441).
+:func:`discriminator_state_dict` and :func:`perceptual_params` carry the VAE
+trainer's PatchGAN and fixed perceptual features over (``training/train_vae.py``,
+``training/perceptual.py``).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 
@@ -175,6 +178,27 @@ def audio_encoder_state_dict(variables: dict) -> Dict[str, np.ndarray]:
     _batch_norm(sd, "dense_block.batch_norm", params["dense_norm"], stats["dense_norm"])
     _dense(sd, "embedding", params["embedding"])
     return sd
+
+
+def discriminator_state_dict(params: dict) -> Dict[str, np.ndarray]:
+    """flax ``PatchDiscriminator`` params -> ``training.train_vae.PatchDiscriminator`` state dict."""
+    sd: Dict[str, np.ndarray] = {}
+    _conv(sd, "conv_in", params["conv_in"])
+    i = 1
+    while f"conv_{i}" in params:
+        _conv(sd, f"conv_{i}", params[f"conv_{i}"])
+        _norm(sd, f"norm_{i}", params[f"norm_{i}"])
+        i += 1
+    _conv(sd, "conv_last", params["conv_last"])
+    _norm(sd, "norm_last", params["norm_last"])
+    _conv(sd, "conv_out", params["conv_out"])
+    return sd
+
+
+def perceptual_params(params) -> List[List[np.ndarray]]:
+    """``perceptual.init_perceptual_params``'s HWIO kernels -> the port's OIHW, stage by stage."""
+    return [[np.ascontiguousarray(np.transpose(np.asarray(w, dtype=np.float32), (3, 2, 0, 1))) for w in stage]
+            for stage in params]
 
 
 def to_torch(sd: Dict[str, np.ndarray]) -> dict:

@@ -35,7 +35,12 @@ Phases, one line each (plus detail lines):
              at eta 0.5, all at 50 steps; every response a 200 with a full
              wav; 64 GroupNorm+SiLU and 6 attention launches per denoise step
              of every served batch; wav and json PCM identical; a seed bitwise
-             the same with other companions in its tier; /healthz figures
+             the same with other companions in its tier and, at eta 0, at
+             tier 1 and tier 8 (the batcher runs batches with cuDNN off);
+             /healthz figures. [tier]: every torch call of a batch-8 UNet
+             forward re-run on row 0 alone, with cuDNN's defaults, with
+             cudnn.deterministic and with cuDNN off: the calls whose row
+             depends on the batch, the drift they cause, the forward's time
   7. cond    the conditional tier at the flagship's full width: the
              cross-attention UNet (conditional_config, 64x64 latents, bf16,
              fused GroupNorm), the 512 VAE and Mel, DDIM at 50 steps, seeded
@@ -48,9 +53,26 @@ Phases, one line each (plus detail lines):
              512 fidelity gates, and 4 encoded HTTP requests through
              ``make_server`` in one batch, a seed bitwise the same with other
              companions
+  8. attn-grad  FlashMHA (the kernel forward, autograd through the
+             reference_attention-order recomputation backward) on every route:
+             forward bitwise flash_mha's, gradients bitwise autograd's of the
+             reference and against the f32 math; the backward timed beside
+             SDPA's forward+backward and its bound
+  9. train   the training slice at full width through ``run_training``: a
+             synthetic 64-slice PNG dataset, a seeded 256 VAE in the diffusers
+             layout, the latent-256 UNet in bf16 with cached latents, micro 16
+             x accum 2, 12 steps, then the same run resumed to 16; losses fall,
+             6 x accum forward launches and backwards per step, no GroupNorm
+             kernel; the saved pipeline answers a request; step breakdown,
+             peak memory and a profile of 2 steps
+ 10. train-pixel  the pixel-256 UNet (bf16, batch 4) takes 3 steps through
+             ``make_train_step``: the mma route under autograd
+ 11. train-vae  the 256 LDM VAE with its PatchGAN, generator and
+             discriminator steps alternating, the adversarial terms on from step 2
 Then one JSON line with each kernel's launches (``launches``: the [main]
 requests; ``serve_launches``: the [serve] traffic; ``cond_launches``: the
-[cond] requests), error and times, the card's
+[cond] requests; ``train_launches``: the [train] run's forwards and
+backwards), error and times, the card's
 name and power limit as nvidia-smi prints them, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without a CUDA device it exits non-zero at once and prints no result.
@@ -96,6 +118,21 @@ COND_TIMED_BATCH = 16
 COND_SERVE_TIER = 4
 ENCODER_CLIPS = 4  # synthetic 10 s clips at 22,050 Hz, one encoder slice each
 GL_BOUND_512 = 3.21 + 1.1  # bench.py:211-213, 512x512 hop 512
+# The training slice: FlashMHA's gradients on every route ((B, h, N, d), dtype).
+ATTN_GRAD_CASES = (((32, 64, 4, 8), "float32"), ((32, 64, 4, 8), "bfloat16"), ((32, 64, 1, 8), "float32"),
+                   ((32, 64, 1, 8), "bfloat16"), ((8, 64, 256, 8), "bfloat16"), ((2, 64, 1024, 8), "bfloat16"),
+                   ((2, 8, 64, 64), "float32"))
+# bf16 gradients against the f32 math on the same (upcast) inputs: the reference's
+# order rounds P, dP = dO V^T and the result to bf16 (2^-9 relative each) and the
+# softmax backward subtracts each row's P-weighted mean of dP, which can cancel;
+# the bound is taken against the largest gradient of the tensor.
+ATTN_GRAD_BF16_BOUND = 2.0 ** -4
+TRAIN_SLICES = 64  # synthetic 256x256 spectrogram slices
+TRAIN_MICRO, TRAIN_ACCUM, TRAIN_STEPS, TRAIN_RESUME_TO = 16, 2, 12, 16
+TRAIN_LR = 3e-4
+TRAIN_ATTN = 6  # SelfAttention2D calls per latent-256 UNet forward: 5 at N=4, 1 at N=1
+PIXEL_BATCH, PIXEL_STEPS = 4, 3
+VAE_TRAIN_BATCH, VAE_TRAIN_STEPS, VAE_DISC_START = 4, 4, 2
 
 
 def fail(msg: str) -> None:
@@ -123,11 +160,20 @@ def cuda_time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def graph_time_ms(fn, reps: int) -> float:
+def graph_time_ms(fn, reps: int, side_warmup: bool = False) -> float:
     """Mean device time of ``fn()`` captured once in a CUDA graph and replayed
-    ``reps`` times: the kernels' time without the host's gaps between launches."""
+    ``reps`` times: the kernels' time without the host's gaps between launches.
+    ``side_warmup``: warm up on a side stream first, as torch's notes on
+    capturing autograd ask."""
     import torch
 
+    if side_warmup:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
@@ -696,6 +742,96 @@ def cross_tier_drift(pipe, seed: int, tier: int) -> dict:
     return out
 
 
+def tier_layers(pipe, seed: int, tier: int) -> dict:
+    """Which operations give a row another result in a batch of ``tier`` than
+    alone, under the current cuDNN settings. One UNet forward (the first
+    timestep, the pipeline's dtype) at batch ``tier`` runs under a
+    TorchFunctionMode that re-runs every torch call whose tensor arguments
+    and result have ``tier`` rows on row 0 alone (those arguments cut to
+    their first row) and compares that with row 0 of the batched result.
+    Returns the first call in forward order whose row differs, and per
+    function the calls, the calls that differ, the largest difference and
+    the input shapes of the calls that differ."""
+    import numpy as np
+    import torch
+    from torch.overrides import TorchFunctionMode
+
+    from audio_diffusion_torch.serving.batcher import _noise_for_seed
+
+    def rows(a):
+        return torch.is_tensor(a) and a.dim() > 0 and a.shape[0] == tier
+
+    per_func, first = {}, []
+
+    class Probe(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            out = func(*args, **kwargs)
+            name = getattr(func, "__name__", str(func))
+            if (rows(out) and any(rows(a) for a in args) and not name.endswith("_") and "item" not in name
+                    and "empty" not in name):  # in-place ops, host reads and uninitialised memory are not compared
+                try:  # the mode is off in here
+                    alone = func(*(a[:1] if rows(a) else a for a in args), **kwargs)
+                except RuntimeError:  # a shape argument names the batch (reshape, view, expand): rows move as a block
+                    alone = None
+                if torch.is_tensor(alone) and alone.shape == out[:1].shape:
+                    d = (out[:1].float() - alone.float()).abs().max().item()
+                    st = per_func.setdefault(name, {"calls": 0, "differ": 0, "max_diff": 0.0, "shapes": set()})
+                    st["calls"] += 1
+                    if d > 0:
+                        st["differ"] += 1
+                        st["max_diff"] = max(st["max_diff"], d)
+                        st["shapes"].add(tuple(next(a for a in args if rows(a)).shape[1:]))
+                        if not first:
+                            first.append((name, d))
+            return out
+
+    h, w = pipe.sample_hw
+    x = torch.from_numpy(np.stack([_noise_for_seed(seed + i, h, w, 1) for i in range(tier)])).to(pipe.device)
+    t = int(pipe.scheduler.schedule(STEPS).timesteps[0])
+    with torch.inference_mode(), Probe():
+        pipe.unet(x, torch.full((tier,), t, device=pipe.device))
+    return {"first": first[0] if first else None, "per_func": per_func}
+
+
+def phase_tier(pipe, card: str) -> dict:
+    """Queue 3 item 1: tier 1 against tier SERVE_TIER, layer by layer, with
+    cuDNN's defaults, with ``cudnn.deterministic``, and with cuDNN off
+    (``cudnn.benchmark`` stays False, TF32 is off), the end-to-end drift and
+    the batch-SERVE_TIER UNet forward's time (CUDA events) under each."""
+    import torch
+
+    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark, torch.backends.cudnn.enabled)
+    h, w = pipe.sample_hw
+    x = torch.randn((32, h, w, 1), generator=torch.Generator(device="cuda").manual_seed(9), device="cuda")
+    t = torch.full((32,), 500, device="cuda")
+    out = {}
+    try:
+        for name, det, enabled in (("default", False, True), ("cudnn.deterministic", True, True),
+                                   ("cudnn off", False, False)):
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det, False
+            torch.backends.cudnn.enabled = enabled
+            layers = tier_layers(pipe, 1000, SERVE_TIER)
+            drift = cross_tier_drift(pipe, 1000, SERVE_TIER)
+            with torch.inference_mode():
+                fwd_ms = {b: (cuda_time_ms(lambda: pipe.unet(x[:b], t[:b]), 10),
+                              graph_time_ms(lambda: pipe.unet(x[:b], t[:b]), 10)) for b in (1, SERVE_TIER, 32)}
+            out[name] = (layers, drift, fwd_ms)
+            first = layers["first"]
+            print(f"[tier] {name} (cudnn.enabled {enabled}, benchmark False, deterministic {det}; UNet forward ms, "
+                  "events / graph, at batch " + ", ".join(f"{b}: {e:.4f} / {g:.4f}" for b, (e, g) in fwd_ms.items())
+                  + "): first call whose row 0 differs "
+                  f"alone and in batch {SERVE_TIER}: {first[0] + f' (max diff {first[1]:.4g})' if first else 'none'}; "
+                  "calls whose row 0 differs, per function: " + "; ".join(
+                      f"{k} {v['differ']}/{v['calls']} (max {v['max_diff']:.4g}, input shapes "
+                      f"{sorted(v['shapes'])[:4]})" for k, v in layers["per_func"].items() if v["differ"])
+                  + f" (of {sum(v['calls'] for v in layers['per_func'].values())} calls checked)"
+                  + "; end to end: " + "; ".join(f"{k} {d:.4g}" for k, (d, _) in drift.items()) + f"  [{card}]")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark, torch.backends.cudnn.enabled = saved
+    return out
+
+
 def phase_serve(pipe, card: str):
     """Save the full-width pipeline in the diffusers layout, load it through
     ``make_server`` (bf16, fused GroupNorm) and answer concurrent HTTP
@@ -789,14 +925,14 @@ def phase_serve(pipe, card: str):
                      f"(max diff {np.abs(first[0].astype(int) - second[0].astype(int)).max()})")
             same_tier[name] = first[0]
         solo = images([{"seed": 1000}], 1)[0]
-        cross = np.abs(solo.astype(np.int32) - same_tier["eta 0"].astype(np.int32))
+        if not np.array_equal(solo, same_tier["eta 0"]):
+            cross = np.abs(solo.astype(np.int32) - same_tier["eta 0"].astype(np.int32))
+            fail(f"[serve] eta 0: seed 1000 alone (tier 1) and at tier {SERVE_TIER} differ: max uint8 diff "
+                 f"{cross.max()}, {100 * (cross > 0).mean():.2f}% of pixels")
         print(f"[serve] ok: wav and json PCM identical; seed 1000 bitwise the same spectrogram with other companions "
-              f"at tier {SERVE_TIER} (eta 0) and tier 4 (eta {SERVE_ETA}); across tiers 1 and {SERVE_TIER} (not "
-              f"asserted: cuDNN may choose other algorithms per batch shape) max uint8 diff {cross.max()}, mean "
-              f"{cross.mean():.4f}, {100 * (cross > 0).mean():.2f}% of pixels differ  [{card}]")
-        drift = cross_tier_drift(served, 1000, SERVE_TIER)
-        print(f"[serve] row 0 at batch 1 vs batch {SERVE_TIER}, direct calls, max abs diff (relative to max|value|): "
-              + "; ".join(f"{k} {d:.4g} ({r:.3g})" for k, (d, r) in drift.items()) + f"  [{card}]")
+              f"at tier {SERVE_TIER} (eta 0) and tier 4 (eta {SERVE_ETA}), and alone at tier 1 (eta 0) as at tier "
+              f"{SERVE_TIER}  [{card}]")
+        phase_tier(served, card)
 
         noise_ms = step_noise_ms(32, served.sample_hw)
         print(f"[serve] per-row step noise of one tier-32 request at {STEPS} steps (host wall with a "
@@ -1251,7 +1387,424 @@ def phase_cond_serve(pipe, encodings, card: str):
     return launches
 
 
-def main() -> int:
+# ---------------------------------------------------------------- training path
+
+def attn_grad_bound(shape, itemsize: int, exp_per_s: float):
+    """(bound ms, bound_by) of one attention backward on q of ``shape``: the
+    largest of the bytes (q, k, v, dO read, dq, dk, dv written), the
+    10*B*h*N^2*d tensor operations (S = QK^T again, dV, dP, dQ, dK) and the
+    B*h*N^2 exponentials of the recomputed softmax."""
+    b, h, n, d = shape
+    floors = {"bytes": 7 * b * h * n * d * itemsize / HBM_BYTES_PER_S,
+              "tensor": 10 * b * h * n * n * d / (BF16_FLOPS if itemsize == 2 else F32_FLOPS),
+              "exp": b * h * n * n / exp_per_s}
+    bound_by = max(floors, key=floors.get)
+    return floors[bound_by] * 1e3, bound_by
+
+
+def phase_attention_grad(card: str) -> dict:
+    """FlashMHA on every route: its forward bitwise a no-grad flash_mha, its
+    gradients bitwise autograd through attention_reference on the same
+    inputs, and within 1e-5 (f32) or ATTN_GRAD_BF16_BOUND (bf16) of max |ref|
+    of the f32 math on the upcast inputs; the backward (recompute and VJP)
+    timed by CUDA events and graph-replayed beside SDPA's forward+backward."""
+    import torch
+    import torch.nn.functional as F
+
+    from audio_diffusion_torch.ops import attention as at
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    exp_per_s = card_exp_per_s()
+    rows, routes, worst = [], set(), {"float32": 0.0, "bfloat16": 0.0}
+    for shape, dtype_name in ATTN_GRAD_CASES:
+        dtype = getattr(torch, dtype_name)
+        b, h, n, d = shape
+        plan = at.attention_plan(n, d, dtype)
+        routes.add(plan.route)
+        qkv = [torch.randn((b, n, h, d), generator=gen, device="cuda").to(dtype).transpose(1, 2) for _ in range(3)]
+        dout = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        leaves = [t.detach().requires_grad_(True) for t in qkv]
+        before = (at.flash_mha.launches, at.FlashMHA.backwards)
+        o = at.FlashMHA.apply(*leaves)
+        grads = torch.autograd.grad(o, leaves, dout)
+        torch.cuda.synchronize()
+        what = f"[attn-grad] {tuple(shape)} {dtype_name} ({plan.route} route)"
+        if (at.flash_mha.launches - before[0], at.FlashMHA.backwards - before[1]) != (1, 1):
+            fail(f"{what}: one FlashMHA call made {at.flash_mha.launches - before[0]} launches and "
+                 f"{at.FlashMHA.backwards - before[1]} backwards")
+        with torch.no_grad():
+            if not torch.equal(o, at.flash_mha(*qkv)):
+                fail(f"{what}: the FlashMHA forward differs from a no-grad flash_mha")
+        ref = [t.detach().requires_grad_(True) for t in qkv]
+        same = torch.autograd.grad(at.attention_reference(*ref), ref, dout)
+        if not all(g.shape == t.shape and g.dtype == dtype and torch.equal(g, s) for g, s, t in zip(grads, same, qkv)):
+            fail(f"{what}: gradients differ from autograd through attention_reference")
+        up = [t.detach().float().requires_grad_(True) for t in qkv]
+        exact = torch.autograd.grad(at.attention_reference(*up), up, dout.float())
+        # against the largest gradient of the call: at N=1 dq and dk are 0 in exact arithmetic
+        err = max((g.float() - e).abs().max().item() for g, e in zip(grads, exact)) / max(
+            e.abs().max().item() for e in exact)
+        bound = 1e-5 if dtype == torch.float32 else ATTN_GRAD_BF16_BOUND
+        if not err <= bound:
+            fail(f"{what}: gradient error {err:.3g} of max |ref| > {bound:.3g}")
+        worst[dtype_name] = max(worst[dtype_name], err)
+
+        del o, grads  # nothing of these autograd graphs may stay alive into the captures below
+
+        def backward():  # FlashMHA's backward: fresh leaves, so every node lives on the capturing stream
+            lv = [t.detach().requires_grad_(True) for t in qkv]
+            return torch.autograd.grad(at.attention_reference(*lv), lv, dout)
+
+        def sdpa():
+            lv = [t.detach().requires_grad_(True) for t in qkv]
+            return torch.autograd.grad(F.scaled_dot_product_attention(*lv), lv, dout)
+
+        bd, bound_by = attn_grad_bound(shape, dout.element_size(), exp_per_s)
+        rows.append({"shape": shape, "dtype": dtype_name, "route": plan.route, "err": err,
+                     "ms": cuda_time_ms(backward, 10), "graph_ms": graph_time_ms(backward, 10, side_warmup=True),
+                     "library_ms": cuda_time_ms(sdpa, 10),
+                     "library_graph_ms": graph_time_ms(sdpa, 10, side_warmup=True),
+                     "bound_ms": bd, "bound_by": bound_by})
+        del qkv, dout, leaves, same, ref, up, exact
+    if routes != {"small", "mma", "simt"}:
+        fail(f"[attn-grad] covered routes {sorted(routes)}, not all three")
+    print(f"[attn-grad] ok: {len(ATTN_GRAD_CASES)} cases on routes {sorted(routes)}: forward bitwise a no-grad "
+          f"flash_mha, gradients bitwise autograd through attention_reference; against the f32 math, max error "
+          f"f32 {worst['float32']:.3g}, bf16 {worst['bfloat16']:.3g} of max |ref| (bounds 1e-05, "
+          f"{ATTN_GRAD_BF16_BOUND:.3g})")
+    print("[attn-grad] backward (recompute + VJP) ms, events / graph, beside SDPA forward+backward events / graph, "
+          "bound (bound_by): " + "; ".join(
+              f"{r['shape']} {r['dtype']} ({r['route']}): {r['ms']:.4f} / {r['graph_ms']:.4f}, SDPA "
+              f"{r['library_ms']:.4f} / {r['library_graph_ms']:.4f}, bound {r['bound_ms']:.6f} ({r['bound_by']})"
+              for r in rows) + f"  [{card}]")
+    # the latent-256 training step's share: per UNet forward 5 calls at N=4 and 1 at N=1, batch 32 bf16
+    per = {r["shape"][2]: r for r in rows if r["dtype"] == "bfloat16" and r["shape"][0] == 32}
+    return {key: 5 * per[4][key] + per[1][key] for key in ("ms", "graph_ms", "library_ms", "library_graph_ms")}
+
+
+def write_training_data(root: Path, seed: int = 0) -> Path:
+    """TRAIN_SLICES 256x256 PNG spectrograms made by the port's Mel (on the card)
+    from seeded chords of sines plus noise; returns their directory."""
+    import numpy as np
+    from PIL import Image
+
+    from audio_diffusion_torch.mel import Mel
+
+    mel = Mel(x_res=256, y_res=256, hop_length=512, device="cuda")
+    rng = np.random.default_rng(seed)
+    t = np.arange(mel.slice_size) / mel.get_sample_rate()
+    clips = np.stack([sum(a * np.sin(2 * np.pi * f * t + p) for f, a, p in zip(
+        rng.uniform(80, 2000, 4), rng.uniform(0.05, 0.4, 4), rng.uniform(0, 2 * np.pi, 4)))
+        + 0.02 * rng.standard_normal(t.size) for _ in range(TRAIN_SLICES)]).astype(np.float32)
+    images = mel.spectrogram_images_from_audio(clips).cpu().numpy()
+    out = root / "slices"
+    out.mkdir()
+    for i, img in enumerate(images):
+        Image.fromarray(img).save(out / f"slice_{i:03d}.png")
+    return out
+
+
+def save_training_vae(root: Path) -> Path:
+    """A seeded random full-width 256 VAE (f32) in the diffusers layout, as ``--vae`` reads it."""
+    import torch
+
+    from audio_diffusion_torch.models import AutoencoderKL, VAEConfig
+    from audio_diffusion_torch.utils import diffusers_io
+
+    vae = AutoencoderKL(VAEConfig(sample_size=256)).init_params(torch.Generator().manual_seed(31))
+    out = root / "vae"
+    diffusers_io.write_json(diffusers_io.vae_config_to_diffusers(vae.config), str(out / "config.json"))
+    diffusers_io.save_state_dict(vae, str(out))
+    return out
+
+
+class _LogLines:
+    """Collects the training logger's messages."""
+
+    def __init__(self):
+        import logging
+
+        self.lines = []
+        self.handler = logging.Handler()
+        self.handler.emit = lambda record: self.lines.append(record.getMessage())
+        self.logger = logging.getLogger("audio_diffusion_torch.training")
+
+    def __enter__(self):
+        self.logger.addHandler(self.handler)
+        self.logger.setLevel("INFO")
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+
+
+def phase_train(card: str, root: Path) -> dict:
+    """The training slice through ``run_training`` at full width (see the
+    module docstring, phase 9). Returns the launch counts of both runs."""
+    import numpy as np
+    import torch
+
+    from audio_diffusion_torch.ops import attention as at
+    from audio_diffusion_torch.ops import fused_groupnorm as gn
+    from audio_diffusion_torch.pipelines import AudioDiffusionPipeline
+    from audio_diffusion_torch.training import RunConfig, TrainConfig, run_training
+
+    t0 = time.perf_counter()
+    data = write_training_data(root)
+    vae_dir = save_training_vae(root)
+    out = root / "model"
+    print(f"[train] wrote {TRAIN_SLICES} synthetic 256x256 slices and a seeded 256 VAE (diffusers layout) in "
+          f"{time.perf_counter() - t0:.2f} s")
+    train = TrainConfig(learning_rate=TRAIN_LR, lr_warmup_steps=0, gradient_accumulation_steps=TRAIN_ACCUM)
+
+    def run(max_steps):
+        return RunConfig(dataset=str(data), output_dir=str(out), train_batch_size=TRAIN_MICRO, vae=str(vae_dir),
+                         mixed_precision="bf16", max_steps=max_steps, save_images_epochs=1000, log_every=1,
+                         device="cuda", timing=True)
+
+    counters = (at.flash_mha, gn.group_norm_silu)
+    for c in counters:
+        c.launches = 0
+    at.FlashMHA.backwards = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    results = []
+    with _LogLines() as log:
+        for max_steps in (TRAIN_STEPS, TRAIN_RESUME_TO):
+            t0 = time.perf_counter()
+            results.append(run_training(run(max_steps), train))
+            torch.cuda.synchronize()
+            results[-1]["wall"] = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    launches = {"flash_mha": at.flash_mha.launches, "FlashMHA.backward": at.FlashMHA.backwards,
+                "group_norm_silu": gn.group_norm_silu.launches}
+    first, second = results
+    losses = first["losses"] + second["losses"]
+    steps = TRAIN_RESUME_TO
+    if not (first["steps"] == TRAIN_STEPS and second["steps"] == steps
+            and len(second["losses"]) == steps - TRAIN_STEPS):
+        fail(f"[train] runs ended at steps {first['steps']} and {second['steps']} with {len(losses)} losses")
+    if not any(f"resumed from step {TRAIN_STEPS}" in line for line in log.lines):
+        fail("[train] the second run did not log its resume from the checkpoint")
+    if not np.isfinite(losses).all():
+        fail(f"[train] non-finite losses {losses}")
+    if not np.mean(losses[-3:]) < np.mean(losses[:3]):
+        fail(f"[train] the loss did not fall on a fixed small dataset: {losses}")
+    want = {"flash_mha": TRAIN_ATTN * TRAIN_ACCUM * steps, "FlashMHA.backward": TRAIN_ATTN * TRAIN_ACCUM * steps,
+            "group_norm_silu": 0}
+    if launches != want:
+        fail(f"[train] launches {launches} over {steps} optimizer steps, expected {want}")
+
+    pipe = AudioDiffusionPipeline.from_pretrained(str(out), dtype="bfloat16", fused_groupnorm=True, device="cuda")
+    raw, audio = pipe(batch_size=1, steps=STEPS, generator=torch.Generator(device="cuda").manual_seed(5),
+                      return_arrays=True)
+    torch.cuda.synchronize()
+    if tuple(raw.shape) != (1, 256, 256) or not bool(torch.isfinite(audio).all()):
+        fail(f"[train] the trained pipeline answered {tuple(raw.shape)}, "
+             f"finite audio {bool(torch.isfinite(audio).all())}")
+    del pipe
+
+    tm = {k: first["timings"][k][1:] + second["timings"][k][1:] for k in first["timings"]}  # first steps warm up
+    step_ms = float(np.mean(tm["step_ms"]))
+    print(f"[train] ok: {steps} steps (micro {TRAIN_MICRO} x accum {TRAIN_ACCUM}, bf16, cached latents, lr "
+          f"{TRAIN_LR:g}) through run_training, resumed at {TRAIN_STEPS} (logged), losses "
+          f"{np.round(losses, 4).tolist()}:"
+          f" mean of the last 3 {np.mean(losses[-3:]):.4f} < first 3 {np.mean(losses[:3]):.4f}; launches {launches} = "
+          f"{TRAIN_ATTN} x {TRAIN_ACCUM} per step; the saved pipeline answered a batch-1 request")
+    print(f"[train] per step (mean of steps after each run's first): host wall {step_ms:.4f} ms = "
+          f"{1e3 / step_ms:.4f} steps/s = {1e3 / step_ms * TRAIN_MICRO * TRAIN_ACCUM:.4f} samples/s; data wait "
+          f"{np.mean(tm['data_wait_ms']):.4f} ms, forward+backward {np.mean(tm['fwd_bwd_ms']):.4f} ms, optimizer+EMA "
+          f"{np.mean(tm['optimizer_ema_ms']):.4f} ms (CUDA events); run walls {first['wall']:.2f} s and "
+          f"{second['wall']:.2f} s; max_memory_allocated {peak_gib:.4f} GiB  [{card}]")
+    return launches
+
+
+def phase_train_profile(card: str):
+    """torch.profiler over 2 steps of the latent-256 train step (make_train_step,
+    bf16, cached-latent moments, micro 16 x accum 2) after 2 warm-up steps:
+    the device busy share and the top device operations, and the backward's
+    share of the step by CUDA events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from audio_diffusion_torch.models import UNet2D, unconditional_config
+    from audio_diffusion_torch.schedulers import DDPMScheduler
+    from audio_diffusion_torch.training.train_unet import TrainConfig, init_train_state, make_train_step
+
+    unet = UNet2D(unconditional_config((32, 32), dtype="bfloat16")).init_params(torch.Generator().manual_seed(0))
+    unet = unet.to("cuda").train()
+    cfg = TrainConfig(learning_rate=TRAIN_LR, lr_warmup_steps=0, gradient_accumulation_steps=TRAIN_ACCUM)
+    state = init_train_state(cfg, unet)
+    step = make_train_step(cfg, unet, DDPMScheduler(), cached_latents=True, record_events=True)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    moments = torch.cat([torch.randn((TRAIN_ACCUM, TRAIN_MICRO, 32, 32, 1), generator=g, device="cuda"),
+                         torch.full((TRAIN_ACCUM, TRAIN_MICRO, 32, 32, 1), -2.0, device="cuda")], dim=-1)
+    for _ in range(2):
+        step(state, moments)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            step(state, moments)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    events = [e for e in prof.key_averages() if dev_us(e) > 0]
+    busy = sum(dev_us(e) for e in events)
+    print(f"[train] profile of 2 steps: wall {wall_us / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms = "
+          f"{100 * busy / wall_us:.2f}% (idle {100 - 100 * busy / wall_us:.2f}%)  [{card}]")
+    for e in sorted(events, key=dev_us, reverse=True)[:10]:
+        print(f"  {dev_us(e) / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
+    ours = [(name, sum(dev_us(e) for e in events if name in e.key) / 1e3) for name in ("mha_small_kernel",)]
+    print("[train] this repo's kernels in those 2 steps: " + "; ".join(f"{n} {ms:.3f} ms" for n, ms in ours))
+
+    # one microbatch's forward and backward apart, by CUDA events
+    from audio_diffusion_torch.training.train_unet import make_loss_fn
+
+    loss_fn = make_loss_fn(cfg, unet, DDPMScheduler(), cached_latents=True)
+    t = torch.randint(0, 1000, (TRAIN_MICRO,), generator=g, device="cuda")
+    noise, eps = (torch.randn((TRAIN_MICRO, 32, 32, 1), generator=g, device="cuda") for _ in range(2))
+    fwd, bwd = [], []
+    for _ in range(4):
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        e[0].record()
+        loss = loss_fn(moments[0], None, t, noise, eps)
+        e[1].record()
+        loss.backward()
+        e[2].record()
+        torch.cuda.synchronize()
+        fwd.append(e[0].elapsed_time(e[1]))
+        bwd.append(e[1].elapsed_time(e[2]))
+    print(f"[train] one microbatch of {TRAIN_MICRO} (CUDA events, mean of the last 3 of 4): forward "
+          f"{sum(fwd[1:]) / 3:.4f} ms, backward {sum(bwd[1:]) / 3:.4f} ms  [{card}]")
+    del state, step, unet
+    torch.cuda.empty_cache()
+
+
+def phase_train_pixel(card: str):
+    """The pixel-256 UNet at full width (bf16) takes PIXEL_STEPS steps at batch
+    PIXEL_BATCH through make_train_step: 6 flash_mha launches (5 at N=256, 1 at
+    N=64, both on the mma route) and 6 FlashMHA backwards per step."""
+    import torch
+
+    from audio_diffusion_torch.models import UNet2D, unconditional_config
+    from audio_diffusion_torch.ops import attention as at
+    from audio_diffusion_torch.ops import fused_groupnorm as gn
+    from audio_diffusion_torch.schedulers import DDPMScheduler
+    from audio_diffusion_torch.training.train_unet import TrainConfig, init_train_state, make_train_step
+
+    unet = UNet2D(unconditional_config((256, 256), dtype="bfloat16")).init_params(torch.Generator().manual_seed(0))
+    unet = unet.to("cuda").train()
+    cfg = TrainConfig(learning_rate=TRAIN_LR, lr_warmup_steps=0)
+    state = init_train_state(cfg, unet)
+    step = make_train_step(cfg, unet, DDPMScheduler())
+    images = torch.rand((1, PIXEL_BATCH, 256, 256, 1), generator=torch.Generator().manual_seed(4)) * 2 - 1
+    step(state, images, seed=1)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = (at.flash_mha.launches, at.FlashMHA.backwards, gn.group_norm_silu.launches)
+    losses, walls = [], []
+    for _ in range(PIXEL_STEPS):
+        t0 = time.perf_counter()
+        _, m = step(state, images, seed=1)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    delta = (at.flash_mha.launches - before[0], at.FlashMHA.backwards - before[1],
+             gn.group_norm_silu.launches - before[2])
+    routes = sorted({at.attention_plan(n, 8, torch.bfloat16).route for n in (256, 64)})
+    if delta != (6 * PIXEL_STEPS, 6 * PIXEL_STEPS, 0) or routes != ["mma"]:
+        fail(f"[train-pixel] launches (flash_mha, FlashMHA.backward, group_norm_silu) {delta}, routes {routes}")
+    import numpy as np
+
+    if not np.isfinite(losses).all():
+        fail(f"[train-pixel] non-finite losses {losses}")
+    print(f"[train-pixel] ok: pixel-256 UNet (bf16, full width) {PIXEL_STEPS} steps at batch {PIXEL_BATCH}: losses "
+          f"{np.round(losses, 4).tolist()}, launches (flash_mha, FlashMHA.backward, group_norm_silu) {delta} on the "
+          f"mma route; step wall {np.mean(walls):.4f} ms (mean), max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.4f} GiB  [{card}]")
+    del state, step, unet
+    torch.cuda.empty_cache()
+
+
+def phase_train_vae(card: str, data: Path):
+    """The 256 LDM VAE (f32, full width) and its PatchGAN: generator and
+    discriminator steps alternate, VAE_TRAIN_STEPS each at batch
+    VAE_TRAIN_BATCH from the synthetic slices, ``disc_start`` VAE_DISC_START:
+    before it the generator loss is nll + kl_weight * kl and the
+    discriminator step leaves its weights as they were; from it on the
+    adversarial term is in the loss and the discriminator moves."""
+    import numpy as np
+    import torch
+
+    from audio_diffusion_torch.data.dataset import ImageSliceDataset, epoch_batches
+    from audio_diffusion_torch.models import AutoencoderKL, VAEConfig
+    from audio_diffusion_torch.training.train_vae import VAETrainConfig, init_vae_train_state, make_vae_train_steps
+
+    vae = AutoencoderKL(VAEConfig(sample_size=256)).init_params(torch.Generator().manual_seed(41)).to("cuda")
+    cfg = VAETrainConfig(learning_rate=1e-5, disc_start=VAE_DISC_START)
+    state, disc = init_vae_train_state(cfg, vae)
+    gen_step, disc_step = make_vae_train_steps(cfg, vae, disc)
+    batches = [b for b, _ in epoch_batches(ImageSliceDataset(str(data)), VAE_TRAIN_BATCH, 1, np.random.default_rng(0))]
+    images = [torch.from_numpy(batches[i % len(batches)]).to("cuda") for i in range(2 * VAE_TRAIN_STEPS + 1)]
+    gen_step(state, images[-1], seed=0)  # warm-up, then a fresh state
+    state, disc = init_vae_train_state(cfg, AutoencoderKL(VAEConfig(sample_size=256)).init_params(
+        torch.Generator().manual_seed(41)).to("cuda"))
+    gen_step, disc_step = make_vae_train_steps(cfg, state.vae, disc)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rows, walls = [], {"gen": [], "disc": []}
+    for i in range(2 * VAE_TRAIN_STEPS):
+        kind = "gen" if i % 2 == 0 else "disc"
+        before = [p.detach().clone() for p in state.disc.parameters()]
+        t0 = time.perf_counter()
+        at_step = state.step
+        state, m = (gen_step if kind == "gen" else disc_step)(state, images[i], seed=0)
+        m = {k: float(v) for k, v in m.items()}
+        torch.cuda.synchronize()
+        walls[kind].append((time.perf_counter() - t0) * 1e3)
+        if not np.isfinite(list(m.values())).all():
+            fail(f"[train-vae] step {at_step} ({kind}): non-finite {m}")
+        on = at_step >= VAE_DISC_START
+        if kind == "gen":
+            plain = m["nll"] + cfg.kl_weight * m["kl"]
+            if on == (abs(m["loss"] - plain) <= 1e-6 * abs(plain)):
+                fail(f"[train-vae] step {at_step}: generator loss {m['loss']} vs nll + kl term {plain} with the "
+                     f"adversarial term {'on' if on else 'off'}")
+        else:
+            moved = not all(torch.equal(a, b) for a, b in zip(before, state.disc.parameters()))
+            if moved != on:
+                fail(f"[train-vae] step {at_step}: the discriminator {'moved' if moved else 'stayed'} with its "
+                     f"term {'on' if on else 'off'}")
+        rows.append((at_step, kind, m))
+    print(f"[train-vae] ok: 256 LDM VAE (f32, full width) + PatchGAN, batch {VAE_TRAIN_BATCH}, {VAE_TRAIN_STEPS} "
+          f"generator and {VAE_TRAIN_STEPS} discriminator steps alternating, the adversarial terms on from step "
+          f"{VAE_DISC_START}: " + "; ".join(f"{s} {k} " + ", ".join(f"{n} {v:.4g}" for n, v in m.items())
+                                           for s, k, m in rows))
+    print(f"[train-vae] step wall ms (mean): generator {np.mean(walls['gen']):.4f}, discriminator "
+          f"{np.mean(walls['disc']):.4f}; max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.4f} GiB  "
+          f"[{card}]")
+    del state, disc, vae
+    torch.cuda.empty_cache()
+
+
+PHASE_GROUPS = ("kernels", "main", "cond", "train")
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Drive the port's paths on one GPU and check them.")
+    ap.add_argument("--only", default=",".join(PHASE_GROUPS),
+                    help="comma-separated phase groups for a partial run (kernels: gn, attn, attn-sweep, ref; main: "
+                         "main, layers, profile, fidelity, serve, tier; cond; train: attn-grad, train, train-pixel, "
+                         "train-vae); a partial run prints no result lines")
+    only = set(ap.parse_args(argv).only.split(","))
+    if not only <= {*PHASE_GROUPS, "tier"}:
+        ap.error(f"--only takes {PHASE_GROUPS} and tier (the [serve] phase's tier probe alone)")
     if not (REPO / "audio_diffusion_torch" / "csrc").is_dir():
         print("chip_smoke: audio_diffusion_torch/ not found beside this script; run it from a checkout",
               file=sys.stderr)
@@ -1268,39 +1821,59 @@ def main() -> int:
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}; "
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
-          f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
+          f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
+          f"cudnn.benchmark={torch.backends.cudnn.benchmark} cudnn.deterministic={torch.backends.cudnn.deterministic}")
     t_start = time.perf_counter()
 
     from audio_diffusion_torch.models import unconditional_config
 
     phase_build()
-    cfg = unconditional_config(sample_size=(32, 32), dtype="bfloat16", fused_groupnorm=True)
-    gn_err, gn_t = phase_groupnorm(cfg, card, cond_config())
-    at_err, at_t = phase_attention(card)
-    phase_attention_sweep(card)
-    phase_unet_reference()
-    t0 = time.perf_counter()
-    pipe = build_pipeline()
-    print(f"[main] built full-width latent-256 pipeline (bf16, fused GroupNorm) in "
-          f"{time.perf_counter() - t0:.2f} s")
-    launches = phase_main(pipe, card)
-    phase_layers(pipe, card)
-    phase_profile(pipe, card)
-    phase_fidelity(pipe, card)
-    serve_launches = phase_serve(pipe, card)
-    del pipe
-    torch.cuda.empty_cache()
+    if "kernels" in only:
+        cfg = unconditional_config(sample_size=(32, 32), dtype="bfloat16", fused_groupnorm=True)
+        gn_err, gn_t = phase_groupnorm(cfg, card, cond_config())
+        at_err, at_t = phase_attention(card)
+        phase_attention_sweep(card)
+        phase_unet_reference()
+    if "main" in only:
+        t0 = time.perf_counter()
+        pipe = build_pipeline()
+        print(f"[main] built full-width latent-256 pipeline (bf16, fused GroupNorm) in "
+              f"{time.perf_counter() - t0:.2f} s")
+        launches = phase_main(pipe, card)
+        phase_layers(pipe, card)
+        phase_profile(pipe, card)
+        phase_fidelity(pipe, card)
+        serve_launches = phase_serve(pipe, card)
+        del pipe
+        torch.cuda.empty_cache()
+    if "tier" in only and "main" not in only:
+        phase_tier(build_pipeline(), card)
+        torch.cuda.empty_cache()
+    if "cond" in only:
+        t0 = time.perf_counter()
+        cond_pipe = build_cond_pipeline()
+        print(f"[cond] built the full-width conditional-latent-512 pipeline (bf16, fused GroupNorm) in "
+              f"{time.perf_counter() - t0:.2f} s")
+        encodings = phase_audio_encoder(card)
+        cond_launches = phase_cond(cond_pipe, encodings, card)
+        phase_cond_reference(cond_pipe, encodings)
+        phase_cond_timing(cond_pipe, encodings, card)
+        phase_fidelity(cond_pipe, card, GL_BOUND_512)
+        phase_cond_serve(cond_pipe, encodings, card)
+        del cond_pipe
+        torch.cuda.empty_cache()
+    if "train" in only:
+        import tempfile
 
-    t0 = time.perf_counter()
-    cond_pipe = build_cond_pipeline()
-    print(f"[cond] built the full-width conditional-latent-512 pipeline (bf16, fused GroupNorm) in "
-          f"{time.perf_counter() - t0:.2f} s")
-    encodings = phase_audio_encoder(card)
-    cond_launches = phase_cond(cond_pipe, encodings, card)
-    phase_cond_reference(cond_pipe, encodings)
-    phase_cond_timing(cond_pipe, encodings, card)
-    phase_fidelity(cond_pipe, card, GL_BOUND_512)
-    phase_cond_serve(cond_pipe, encodings, card)
+        grad_t = phase_attention_grad(card)
+        with tempfile.TemporaryDirectory() as d:
+            train_launches = phase_train(card, Path(d))
+            phase_train_profile(card)
+            phase_train_pixel(card)
+            phase_train_vae(card, Path(d) / "slices")
+    if only != set(PHASE_GROUPS):  # a partial run
+        print(f"chip_smoke: partial run of {sorted(only)} done in {time.perf_counter() - t_start:.1f} s; no result")
+        return 0
 
     pallas_gn = "audio_diffusion_tpu/ops/pallas_groupnorm.py"
     gn_row = {"name": "group_norm_silu", "route": "cuda", "source": "audio_diffusion_torch/csrc/group_norm_silu.cu",
@@ -1308,20 +1881,27 @@ def main() -> int:
               "launches": launches["group_norm_silu"], "launches_per_request": 64 * STEPS,
               "serve_launches": serve_launches["group_norm_silu"],
               "cond_launches": cond_launches["group_norm_silu"], "cond_launches_per_request": COND_NORMS * STEPS,
+              "train_launches": {"forward": train_launches["group_norm_silu"], "backward": 0},
               "max_abs_err": gn_err["f32"], "bf16_max_ulps": gn_err["bf16_ulps"]}
     at_row = {"name": "flash_mha", "route": "cuda", "source": "audio_diffusion_torch/csrc/mha.cu",
               "replaces": "audio_diffusion_tpu/ops/pallas_attention.py:55", "launches": launches["flash_mha"],
               "launches_per_request": 6 * STEPS, "serve_launches": serve_launches["flash_mha"],
-              "cond_launches": cond_launches["flash_mha"], "max_abs_err": at_err["f32"]}
+              "cond_launches": cond_launches["flash_mha"],
+              "train_launches": {"forward": train_launches["flash_mha"],
+                                 "backward": train_launches["FlashMHA.backward"]},
+              "grad_ms": grad_t["ms"], "grad_graph_ms": grad_t["graph_ms"], "grad_library_ms": grad_t["library_ms"],
+              "grad_library_graph_ms": grad_t["library_graph_ms"], "max_abs_err": at_err["f32"]}
     keys = ("ms", "graph_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_graph_ms")
     kernels = [{**gn_row, **{k: gn_t[k] for k in keys}}, {**at_row, **{k: at_t[k] for k in keys}}]
     for k in kernels:
         if not k["launches"] > 0:
             fail(f"kernel {k['name']} was not launched on the main path")
+    if not (train_launches["flash_mha"] > 0 and train_launches["FlashMHA.backward"] > 0):
+        fail("flash_mha and its backward were not launched on the training path")
     print(f"(times per UNet forward at batch 32, bf16: ms by CUDA events around eager calls, host gaps included; "
           f"graph_ms replayed from a CUDA graph; library_ms: torch's F.group_norm + F.silu (two calls) and "
-          f"F.scaled_dot_product_attention; total run "
-          f"{time.perf_counter() - t_start:.1f} s)  [{card}]")
+          f"F.scaled_dot_product_attention; grad_*: the attention backward per latent-256 UNet forward at batch 32 "
+          f"beside SDPA's forward+backward; total run {time.perf_counter() - t_start:.1f} s)  [{card}]")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

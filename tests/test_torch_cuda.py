@@ -73,6 +73,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 
 @pytest.mark.cuda
 def test_cuda_wrappers_refuse_requires_grad():
+    """The GroupNorm kernel and the raw flash_mha have no backward; under
+    autograd multi_head_attention goes through FlashMHA instead."""
     _cuda()
     x = torch.randn(2, 64, 4, 4, device="cuda", requires_grad=True)
     w = torch.ones(64, device="cuda")
@@ -80,7 +82,8 @@ def test_cuda_wrappers_refuse_requires_grad():
         gn.fused_group_norm_silu(x, w, torch.zeros_like(w), 32, 1e-5)
     q = torch.randn(1, 64, 4, 8, device="cuda", requires_grad=True)
     with pytest.raises(RuntimeError, match="no backward"):
-        at.multi_head_attention(q, q, q)
+        at.flash_mha(q, q, q)
+    assert at.multi_head_attention(q, q, q).grad_fn is not None
     with torch.no_grad():
         assert gn.fused_group_norm_silu(x, w, torch.zeros_like(w), 32, 1e-5).shape == x.shape
         assert at.multi_head_attention(q, q, q).shape == q.shape
@@ -390,3 +393,68 @@ def test_conditional_unet_on_the_card_takes_the_groupnorm_kernel():
     n_res = sum(isinstance(m, ResnetBlock2D) for m in unet.modules())
     assert (gn.group_norm_silu.launches - before[0], at.flash_mha.launches - before[1]) == (2 * n_res, 0)
     torch.testing.assert_close(out.cpu(), ref, rtol=0, atol=1e-4 * max(1.0, ref.abs().max().item()))
+
+
+# ------------------------------------------------------------------ training path
+
+# (B, heads, N, d, dtype) per route of the attention plan under FlashMHA
+GRAD_CASES = [(4, 64, 4, 8, torch.float32), (4, 64, 1, 8, torch.bfloat16), (2, 64, 256, 8, torch.bfloat16),
+              (2, 8, 64, 64, torch.float32)]
+
+
+def test_grad_cases_cover_every_route():
+    assert {at.attention_plan(n, d, dt).route for _, _, n, d, dt in GRAD_CASES} == {"small", "mma", "simt"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b, h, n, d, dtype", GRAD_CASES)
+def test_flash_mha_gradients_match_autograd_of_the_reference(b, h, n, d, dtype):
+    """FlashMHA's forward is flash_mha's, bitwise; its backward is autograd
+    through attention_reference on the saved inputs, so its gradients equal
+    that autograd bitwise, in the inputs' shapes and dtype."""
+    _cuda()
+    g = torch.Generator(device="cuda").manual_seed(n)
+    qkv = [torch.randn((b, n, h, d), generator=g, device="cuda").to(dtype).transpose(1, 2) for _ in range(3)]
+    dout = torch.randn((b, h, n, d), generator=g, device="cuda").to(dtype)
+    leaves = [t.detach().clone().requires_grad_(True) for t in qkv]
+    before = (at.flash_mha.launches, at.FlashMHA.backwards)
+    o = at.FlashMHA.apply(*leaves)
+    o.backward(dout)
+    torch.cuda.synchronize()
+    assert (at.flash_mha.launches, at.FlashMHA.backwards) == (before[0] + 1, before[1] + 1)
+    with torch.no_grad():
+        assert torch.equal(o, at.flash_mha(*qkv))
+    ref = [t.detach().clone().requires_grad_(True) for t in qkv]
+    want = torch.autograd.grad(at.attention_reference(*ref), ref, dout)
+    for t, w in zip(leaves, want):
+        assert t.grad.shape == t.shape and t.grad.dtype == dtype and torch.equal(t.grad, w)
+
+
+@pytest.mark.cuda
+def test_one_bf16_train_step_of_a_tiny_unet_on_the_card():
+    """A tiny bf16 UNet with an attention level takes one optimizer step on
+    the card: one flash_mha launch and one FlashMHA backward per attention
+    layer and microbatch, no GroupNorm-kernel launch, every parameter gets a
+    gradient, finite loss."""
+    _cuda()
+    from audio_diffusion_torch.models import UNet2D, UNetConfig
+    from audio_diffusion_torch.models.unet2d import SelfAttention2D
+    from audio_diffusion_torch.schedulers import DDPMScheduler
+    from audio_diffusion_torch.training.train_unet import TrainConfig, init_train_state, make_train_step
+
+    cfg = UNetConfig(sample_size=(16, 16), block_out_channels=(32, 64), down_block_types=("DownBlock2D",
+                     "AttnDownBlock2D"), up_block_types=("AttnUpBlock2D", "UpBlock2D"), layers_per_block=1,
+                     norm_num_groups=8, dtype="bfloat16")
+    unet = UNet2D(cfg).init_params(torch.Generator().manual_seed(0)).to("cuda")
+    n_attn = sum(isinstance(m, SelfAttention2D) for m in unet.modules())
+    tc = TrainConfig(gradient_accumulation_steps=2, lr_warmup_steps=0)
+    state = init_train_state(tc, unet)
+    step = make_train_step(tc, unet, DDPMScheduler())
+    images = torch.rand((2, 4, 16, 16, 1), generator=torch.Generator().manual_seed(1)) * 2 - 1
+    before = (at.flash_mha.launches, at.FlashMHA.backwards, gn.group_norm_silu.launches)
+    state, metrics = step(state, images, seed=0)
+    torch.cuda.synchronize()
+    assert (at.flash_mha.launches - before[0], at.FlashMHA.backwards - before[1],
+            gn.group_norm_silu.launches - before[2]) == (2 * n_attn, 2 * n_attn, 0)
+    assert all(p.grad is not None for p in unet.parameters())
+    assert state.step == 1 and bool(torch.isfinite(metrics["loss"])) and float(metrics["grad_norm"]) > 0

@@ -304,8 +304,11 @@ def test_port_imports_no_jax():
             "audio_diffusion_torch.utils.convert, audio_diffusion_torch.utils.diffusers_io, "
             "audio_diffusion_torch.ops._build, audio_diffusion_torch.ops.audio_io, "
             "audio_diffusion_torch.schedulers.ddpm, audio_diffusion_torch.serving, "
-            "audio_diffusion_torch.serving.__main__; "
-            "bad = [m for m in ('jax', 'flax', 'audio_diffusion_tpu') if m in sys.modules]; "
+            "audio_diffusion_torch.serving.__main__, audio_diffusion_torch.training, "
+            "audio_diffusion_torch.training.__main__, audio_diffusion_torch.training.train_vae, "
+            "audio_diffusion_torch.training.perceptual, audio_diffusion_torch.data.dataset, "
+            "audio_diffusion_torch.models.ema; "
+            "bad = [m for m in ('jax', 'flax', 'optax', 'audio_diffusion_tpu') if m in sys.modules]; "
             "assert not bad, bad")
     env = {**os.environ, "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH", "")}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True,

@@ -1,0 +1,452 @@
+"""Port parity of UNet training: the attention kernel's VJP (``FlashMHA``),
+the lr schedules, clip + AdamW, EMA, the velocity target, one microbatch's
+loss and gradients and the full accumulated step against the JAX package,
+the data stream, checkpoints, and ``run_training`` with a bitwise resume, on
+the CPU at tiny widths. The JAX draws are made here and injected."""
+
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+from PIL import Image
+
+from test_torch_models import random_params
+
+from audio_diffusion_torch.data import dataset as tdata
+from audio_diffusion_torch.mel import Mel as TorchMel
+from audio_diffusion_torch.models import UNet2D as TorchUNet
+from audio_diffusion_torch.models import UNetConfig as TorchUNetConfig
+from audio_diffusion_torch.models.ema import EMA as TorchEMA
+from audio_diffusion_torch.ops import attention as at
+from audio_diffusion_torch.pipelines.pipeline import AudioDiffusionPipeline as TorchPipeline
+from audio_diffusion_torch.schedulers import DDIMScheduler as TorchDDIM
+from audio_diffusion_torch.schedulers import DDPMScheduler as TorchDDPM
+from audio_diffusion_torch.schedulers import SchedulerConfig as TorchSchedulerConfig
+from audio_diffusion_torch.training import checkpoint as tckpt
+from audio_diffusion_torch.training import train_unet as tt
+from audio_diffusion_torch.training.loop import RunConfig, run_training
+from audio_diffusion_torch.utils.convert import to_torch, unet_state_dict
+from audio_diffusion_tpu.data import dataset as jdata
+from audio_diffusion_tpu.models import UNet2D, UNetConfig
+from audio_diffusion_tpu.models.ema import EMA
+from audio_diffusion_tpu.models.vae import DiagonalGaussian
+from audio_diffusion_tpu.ops import pallas_attention
+from audio_diffusion_tpu.schedulers import DDIMScheduler, DDPMScheduler
+from audio_diffusion_tpu.training import train_unet as jt
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+UNCOND_KW = dict(sample_size=(8, 8), block_out_channels=(8, 16), down_block_types=("DownBlock2D", "AttnDownBlock2D"),
+                 up_block_types=("AttnUpBlock2D", "UpBlock2D"), layers_per_block=1, norm_num_groups=4)
+COND_KW = dict(sample_size=(8, 8), block_out_channels=(8, 16),
+               down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
+               up_block_types=("UpBlock2D", "CrossAttnUpBlock2D"), layers_per_block=1, norm_num_groups=4,
+               attention_head_dim=2, cross_attention_dim=12)
+RES = 16  # the tiny PNG dataset's slices
+
+
+def _unet_pair(kw, seed=1, in_channels=1):
+    kw = dict(kw, in_channels=in_channels, out_channels=in_channels)
+    cfg = UNetConfig(**kw)
+    unet = UNet2D(cfg)
+    params = random_params(unet.init_params, seed)
+    port = TorchUNet(TorchUNetConfig(**kw))
+    port.load_state_dict(to_torch(unet_state_dict(params, cfg)), strict=True)
+    return cfg, unet, params, port
+
+
+def _rel(a, b):
+    a = a.detach() if isinstance(a, torch.Tensor) else a
+    return abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+
+
+# ----------------------------------------------------------------- attention VJP
+
+@pytest.mark.parametrize("n", [1, 4, 16, 64])
+def test_flash_mha_backward_matches_jax_vjp(n):
+    rng = np.random.default_rng(n)
+    q, k, v, g = (rng.standard_normal((2, 3, n, 8)).astype(np.float32) for _ in range(4))
+    out, vjp = jax.vjp(pallas_attention.flash_mha, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(g))
+    leaves = [torch.tensor(x, requires_grad=True) for x in (q, k, v)]
+    before = at.FlashMHA.backwards
+    o = at.FlashMHA.apply(*leaves, at.attention_plain)
+    o.backward(torch.from_numpy(g))
+    assert at.FlashMHA.backwards == before + 1
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(out), rtol=0, atol=1e-5)
+    for t, w in zip(leaves, want):
+        assert t.grad.shape == t.shape
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), rtol=0, atol=1e-5)
+
+
+def test_flash_mha_backward_follows_reference_rounding_in_bf16():
+    """In bf16 the backward differentiates reference_attention's order (p cast
+    to q's dtype before P V), not attention_plain's f32 P V."""
+    g = torch.Generator().manual_seed(0)
+    q, k, v, dout = (torch.randn(1, 2, 16, 8, generator=g).bfloat16() for _ in range(4))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    at.FlashMHA.apply(*leaves, at.attention_plain).backward(dout)
+    ref = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(at.attention_reference(*ref), ref, dout)
+    for t, w in zip(leaves, want):
+        assert t.grad.dtype == torch.bfloat16 and torch.equal(t.grad, w)
+
+
+def test_multi_head_attention_on_the_cpu_stays_plain_under_grad():
+    q = torch.randn(1, 2, 4, 8, requires_grad=True)
+    before = (at.flash_mha.launches, at.FlashMHA.backwards)
+    at.multi_head_attention(q, q, q).sum().backward()
+    assert q.grad is not None and (at.flash_mha.launches, at.FlashMHA.backwards) == before
+
+
+# ------------------------------------------------------- schedules, optimizer, EMA
+
+@pytest.mark.parametrize("schedule", ["cosine", "linear", "constant"])
+def test_lr_schedule_matches_optax(schedule):
+    for warm, total in ((10, 60), (0, 40)):
+        cfg = dict(learning_rate=3e-4, lr_schedule=schedule, lr_warmup_steps=warm, total_steps=total)
+        got, want = tt.make_lr_schedule(tt.TrainConfig(**cfg)), jt.make_lr_schedule(jt.TrainConfig(**cfg))
+        for count in [*range(warm + 11), total - 1, total, total + 3]:
+            w = float(want(jnp.int32(count)))
+            assert abs(got(count) - w) <= 1e-7 * abs(w), (schedule, warm, count, got(count), w)
+        if warm:
+            assert got(0) == 0.0
+
+
+def test_ema_matches_jax():
+    rng = np.random.default_rng(0)
+    ema_j, ema_t = EMA(), TorchEMA()
+    for step in (0, 1, 2, 10, 1000, 10**7):
+        assert abs(ema_t.decay(step) - float(ema_j.decay(step))) <= 1e-7
+    e, p = (rng.standard_normal((3, 5)).astype(np.float32) for _ in range(2))
+    want = ema_j.update({"w": jnp.asarray(e)}, {"w": jnp.asarray(p)}, 7)["w"]
+    te = torch.tensor(e)
+    assert ema_t.update([te], [torch.tensor(p)], 7) == ema_t.decay(7)
+    np.testing.assert_allclose(te.numpy(), np.asarray(want), rtol=0, atol=1e-7)
+
+
+def test_clip_and_adamw_match_optax_on_injected_gradients():
+    """5 steps on the same gradient trees, two of them above the clip norm:
+    params within 1e-6 (warmup, so the first update has lr 0)."""
+    rng = np.random.default_rng(0)
+    shapes = [(3, 4), (5,), (2, 3, 3, 3), ()]
+    p0 = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    cfg = dict(learning_rate=1e-2, lr_warmup_steps=2, total_steps=20)
+    opt = tt.make_optimizer(tt.TrainConfig(**cfg))
+    params = {str(i): torch.tensor(x.copy()) for i, x in enumerate(p0)}
+    state = opt.init(params)
+    jopt = jt.make_optimizer(jt.TrainConfig(**cfg))
+    jparams = [jnp.asarray(x) for x in p0]
+    jstate = jopt.init(jparams)
+    for i in range(5):
+        grads = [(rng.standard_normal(s) * (2.0 if i % 2 else 0.1)).astype(np.float32) for s in shapes]
+        opt.step(list(params.values()), [torch.tensor(g) for g in grads], state)
+        updates, jstate = jopt.update([jnp.asarray(g) for g in grads], jstate, jparams)
+        jparams = optax.apply_updates(jparams, updates)
+        for k, want in enumerate(jparams):
+            np.testing.assert_allclose(params[str(k)].numpy(), np.asarray(want), rtol=0, atol=1e-6)
+    assert state.count == 5
+
+
+@pytest.mark.parametrize("kind", ["ddpm", "ddim"])
+def test_velocity_matches_jax(kind):
+    rng = np.random.default_rng(1)
+    x, n = (rng.standard_normal((3, 4, 4, 1)).astype(np.float32) for _ in range(2))
+    t = np.array([0, 499, 999])
+    jsched, tsched = (DDPMScheduler(), TorchDDPM()) if kind == "ddpm" else (DDIMScheduler(), TorchDDIM())
+    want = jsched.velocity(jnp.asarray(x), jnp.asarray(n), jnp.asarray(t))
+    got = tsched.velocity(torch.tensor(x), torch.tensor(n), torch.tensor(t))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-6)
+
+
+# ------------------------------------------------------------- loss and step
+
+CASES = {"unconditional": (UNCOND_KW, "epsilon", False), "conditional": (COND_KW, "epsilon", False),
+         "cached_latents": (UNCOND_KW, "epsilon", True), "v_prediction": (UNCOND_KW, "v_prediction", False)}
+
+
+def _jax_draws(key, micro, shape, t_max=1000):
+    """train_unet.py:209-221: split(key, 3) -> timesteps, noise, posterior eps."""
+    t_key, n_key, v_key = jax.random.split(key, 3)
+    return (np.asarray(jax.random.randint(t_key, (micro,), 0, t_max)),
+            np.asarray(jax.random.normal(n_key, (micro, *shape))),
+            np.asarray(jax.random.normal(v_key, (micro, *shape))))
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_microbatch_loss_and_gradients_match_jax(case):
+    kw, prediction, cached = CASES[case]
+    conditional = "cross_attention_dim" in kw
+    cfg, unet, params, port = _unet_pair(kw, seed=2)
+    rng = np.random.default_rng(3)
+    micro = 3
+    shape = (8, 8, 1)
+    images = rng.uniform(-1, 1, (micro, *shape)).astype(np.float32)
+    if cached:  # moments: mean ‖ logvar
+        images = np.concatenate([images, rng.uniform(-3, 0, (micro, *shape)).astype(np.float32)], axis=-1)
+    enc = rng.standard_normal((micro, 1, 12)).astype(np.float32) if conditional else None
+    t, noise, eps = _jax_draws(jax.random.key(5), micro, shape)
+    jsched = DDPMScheduler()
+
+    def jax_loss(p):  # train_unet.py:208-228 with the draws injected
+        clean = jnp.asarray(images)
+        if cached:
+            mean, logvar = jnp.split(clean, 2, axis=-1)
+            d = DiagonalGaussian(mean, logvar)
+            clean = jax.lax.stop_gradient(0.18215 * (d.mean + d.std * jnp.asarray(eps)))
+        noisy = jsched.add_noise(clean, jnp.asarray(noise), jnp.asarray(t))
+        pred = unet.apply({"params": p}, noisy, jnp.asarray(t), None if enc is None else jnp.asarray(enc))
+        target = jsched.velocity(clean, jnp.asarray(noise), jnp.asarray(t)) if prediction == "v_prediction" else noise
+        return jnp.mean((pred - target) ** 2)
+
+    want_loss, want_grads = jax.jit(jax.value_and_grad(jax_loss))(params)
+    loss_fn = tt.make_loss_fn(tt.TrainConfig(prediction_type=prediction), port, TorchDDPM(), conditional=conditional,
+                              cached_latents=cached)
+    loss = loss_fn(torch.tensor(images), None if enc is None else torch.tensor(enc), torch.tensor(t),
+                   torch.tensor(noise), torch.tensor(eps) if cached else None)
+    loss.backward()
+    assert _rel(loss, want_loss) <= 1e-5
+    want = unet_state_dict(want_grads, cfg)
+    got = {k: p.grad for k, p in port.named_parameters()}
+    assert got.keys() == want.keys() and all(g is not None for g in got.values())
+    # to_k's bias gets a zero gradient in exact arithmetic (softmax ignores a
+    # shift shared by every key): there both packages must give rounding
+    # noise, under 1e-6 of the largest gradient.
+    noise = 1e-6 * max(np.abs(w).max() for w in want.values())
+    for k, g in got.items():
+        if k.endswith("to_k.bias"):
+            assert np.abs(g.numpy()).max() <= noise and np.abs(want[k]).max() <= noise, k
+        else:
+            assert np.abs(g.numpy() - want[k]).max() <= 1e-4 * np.abs(want[k]).max(), k
+
+
+def test_train_step_with_accumulation_matches_jax():
+    """accum 2 x micro 2 against make_train_step with the same key: loss,
+    grad_norm and ema_decay at 1e-5 (the draws of each microbatch come from
+    split(key, accum), then split(k, 3), as the JAX step makes them)."""
+    cfg_kw = dict(learning_rate=1e-3, lr_warmup_steps=1, total_steps=100, gradient_accumulation_steps=2)
+    _, unet, params, port = _unet_pair(UNCOND_KW, seed=4)
+    rng = np.random.default_rng(5)
+    images = rng.uniform(-1, 1, (2, 2, 8, 8, 1)).astype(np.float32)
+    key = jax.random.key(9)
+    draws = [_jax_draws(k, 2, (8, 8, 1)) for k in jax.random.split(key, 2)]
+    jstate = jt.init_train_state(jt.TrainConfig(**cfg_kw), params)
+    jstep = jt.make_train_step(jt.TrainConfig(**cfg_kw), unet, DDPMScheduler())
+    _, want = jstep(jstate, jnp.asarray(images), None, key)
+
+    state = tt.init_train_state(tt.TrainConfig(**cfg_kw), port)
+    step = tt.make_train_step(tt.TrainConfig(**cfg_kw), port, TorchDDPM())
+    state, got = step(state, images, timesteps=np.stack([d[0] for d in draws]),
+                      noise=np.stack([d[1] for d in draws]))
+    assert state.step == 1 and state.opt_state.count == 1
+    for name in ("loss", "grad_norm", "ema_decay"):
+        assert _rel(got[name], want[name]) <= 1e-5, (name, float(got[name]), float(want[name]))
+
+
+def test_accumulation_2x2_equals_one_batch_of_4():
+    _, _, _, port = _unet_pair(UNCOND_KW, seed=6)
+    rng = np.random.default_rng(7)
+    images = rng.uniform(-1, 1, (4, 8, 8, 1)).astype(np.float32)
+    t = rng.integers(0, 1000, 4)
+    noise = rng.standard_normal((4, 8, 8, 1)).astype(np.float32)
+    out = {}
+    for accum in (1, 2):
+        unet = TorchUNet(port.config)
+        unet.load_state_dict(port.state_dict())
+        cfg = tt.TrainConfig(gradient_accumulation_steps=accum, use_ema=False)
+        state = tt.init_train_state(cfg, unet)
+        micro = 4 // accum
+        _, m = tt.make_train_step(cfg, unet, TorchDDPM())(
+            state, images.reshape(accum, micro, 8, 8, 1), timesteps=t.reshape(accum, micro),
+            noise=noise.reshape(accum, micro, 8, 8, 1))
+        out[accum] = m
+    for name in ("loss", "grad_norm"):
+        assert _rel(out[2][name], out[1][name]) <= 1e-5
+
+
+def test_train_step_draws_from_the_seed_and_step_and_refuses_partial_draws():
+    _, _, _, port = _unet_pair(UNCOND_KW, seed=8)
+    images = np.random.default_rng(9).uniform(-1, 1, (1, 2, 8, 8, 1)).astype(np.float32)
+    cfg = tt.TrainConfig(use_ema=False)
+    losses = []
+    for _ in range(2):
+        unet = TorchUNet(port.config)
+        unet.load_state_dict(port.state_dict())
+        state = tt.init_train_state(cfg, unet)
+        step = tt.make_train_step(cfg, unet, TorchDDPM())
+        losses.append([float(step(state, images, seed=3)[1]["loss"]) for _ in range(2)])
+    assert losses[0] == losses[1] and losses[0][0] != losses[0][1]
+    with pytest.raises(ValueError, match="inject every draw"):
+        step(state, images, timesteps=np.zeros((1, 2), np.int64))
+    with pytest.raises(ValueError, match="one device"):
+        tt.make_train_step(tt.TrainConfig(param_sharding="fsdp"), unet, TorchDDPM())
+
+
+# ------------------------------------------------------------------------ data
+
+@pytest.fixture(scope="module")
+def dataset_dir(tmp_path_factory):
+    d = tmp_path_factory.mktemp("slices")
+    rng = np.random.default_rng(0)
+    for i in range(8):
+        Image.fromarray(rng.integers(0, 256, (RES, RES), dtype=np.uint8)).save(d / f"slice_{i:02d}.png")
+    return str(d)
+
+
+@pytest.mark.parametrize("precomputed", [False, True])
+def test_epoch_batches_order_matches_jax(dataset_dir, precomputed):
+    tds, jds = tdata.ImageSliceDataset(dataset_dir), jdata.ImageSliceDataset(dataset_dir)
+    pre = None
+    if precomputed:
+        pre = (np.arange(8 * 4 * 4 * 2, dtype=np.float32).reshape(8, 4, 4, 2), [f"f{i}" for i in range(8)])
+    for start in (0, 1):
+        got = list(tdata.epoch_batches(tds, 2, 2, tdata.epoch_rng(3, 1), precomputed=pre, start_group=start))
+        want = list(jdata.epoch_batches(jds, 2, 2, jdata.epoch_rng(3, 1), precomputed=pre, start_group=start))
+        assert len(got) == len(want) == 2 - start
+        for (a, _), (b, _) in zip(got, want):
+            assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def test_dataset_hf_path_needs_datasets_and_prefetch_reraises(tmp_path, monkeypatch):
+    (tmp_path / "dataset_info.json").write_text("{}")
+    monkeypatch.setitem(sys.modules, "datasets", None)
+    with pytest.raises(ImportError, match="datasets"):
+        tdata.ImageSliceDataset(str(tmp_path))
+
+    def broken():
+        yield 1
+        raise KeyError("boom")
+
+    it = tdata.prefetch(broken(), transform=lambda x: x + 1)
+    assert next(it) == 2
+    with pytest.raises(KeyError):
+        next(it)
+
+
+# ------------------------------------------------------- checkpoints and the loop
+
+def test_checkpoint_round_trip_and_pruning(tmp_path):
+    _, _, _, port = _unet_pair(UNCOND_KW, seed=10)
+    cfg = tt.TrainConfig()
+    state = tt.init_train_state(cfg, port)
+    step = tt.make_train_step(cfg, port, TorchDDPM())
+    images = np.random.default_rng(11).uniform(-1, 1, (1, 2, 8, 8, 1)).astype(np.float32)
+    manager = tckpt.make_manager(str(tmp_path / "ck"), max_to_keep=2)
+    for _ in range(3):
+        state, _ = step(state, images)
+        tckpt.save_train_state(manager, state.step, state)
+    assert manager.all_steps() == [2, 3] and not any(n.endswith(".tmp") for n in os.listdir(manager.directory))
+    fresh = TorchUNet(port.config)
+    template = tt.init_train_state(cfg, fresh)
+    assert tckpt.restore_train_state(manager, template) is template
+    assert template.step == 3 and template.opt_state.count == 3
+    for a, b in ((template.params, state.params), (template.opt_state.mu, state.opt_state.mu),
+                 (template.opt_state.nu, state.opt_state.nu), (template.ema_params, state.ema_params)):
+        assert a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+    assert all(torch.equal(p, state.params[k]) for k, p in fresh.named_parameters())  # restored in place
+    assert tckpt.restore_train_state(tckpt.make_manager(str(tmp_path / "empty")), template) is None
+
+
+@pytest.fixture(scope="module")
+def seed_pipeline(tmp_path_factory):
+    """A tiny port pipeline in the diffusers layout: --from_pretrained keeps the UNet tiny."""
+    d = str(tmp_path_factory.mktemp("seed"))
+    unet = TorchUNet(TorchUNetConfig(**dict(UNCOND_KW, sample_size=(RES, RES))))
+    unet.init_params(torch.Generator().manual_seed(0))
+    TorchPipeline(unet, TorchMel(x_res=RES, y_res=RES, device="cpu"), TorchDDIM(TorchSchedulerConfig(100)),
+                  device="cpu").save_pretrained(d)
+    return d
+
+
+def _run(dataset_dir, seed_pipeline, out, max_steps):
+    run = RunConfig(dataset=dataset_dir, output_dir=out, num_epochs=3, train_batch_size=2, save_images_epochs=1000,
+                    save_model_epochs=1, scheduler="ddim", num_train_steps=100, from_pretrained=seed_pipeline,
+                    max_steps=max_steps, log_every=1, device="cpu")
+    return run_training(run, tt.TrainConfig(lr_warmup_steps=2, learning_rate=1e-3))
+
+
+def test_run_training_resumes_bitwise_and_saves_a_loadable_pipeline(dataset_dir, seed_pipeline, tmp_path):
+    """4 straight steps == 2 steps + a resumed 2 (mid-epoch: 4 steps per
+    epoch), bitwise under deterministic algorithms; the saved directory loads
+    in the port and in the JAX package."""
+    from audio_diffusion_tpu.pipelines import AudioDiffusionPipeline
+
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        straight = _run(dataset_dir, seed_pipeline, str(tmp_path / "a"), 4)
+        first = _run(dataset_dir, seed_pipeline, str(tmp_path / "b"), 2)
+        resumed = _run(dataset_dir, seed_pipeline, str(tmp_path / "b"), 4)
+        again = _run(dataset_dir, seed_pipeline, str(tmp_path / "b"), 4)
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    assert straight["steps"] == resumed["steps"] == 4 and first["steps"] == 2
+    assert straight["losses"] == first["losses"] + resumed["losses"] and np.isfinite(straight["losses"]).all()
+    assert again["steps"] == 4 and again["losses"] == []  # already at max_steps: nothing trained
+    ck = [tckpt.make_manager(str(tmp_path / d / "checkpoints")).restore() for d in ("a", "b")]
+    for part in ("params", "ema_params"):
+        assert all(torch.equal(ck[0][part][k], ck[1][part][k]) for k in ck[0][part])
+    assert all(torch.equal(ck[0]["opt_state"][m][k], ck[1]["opt_state"][m][k])
+               for m in ("mu", "nu") for k in ck[0]["params"])
+
+    out = str(tmp_path / "a")
+    pipe = TorchPipeline.from_pretrained(out, device="cpu")
+    ema = ck[0]["ema_params"]
+    assert all(torch.equal(p, ema[k]) for k, p in pipe.unet.named_parameters())  # saved from the EMA
+    assert pipe(batch_size=1, steps=2, return_images_only=True).shape == (1, RES, RES)
+    jpipe = AudioDiffusionPipeline.from_pretrained(out)
+    assert jpipe(batch_size=1, steps=2, return_images_only=True).shape == (1, RES, RES)
+
+
+def test_run_training_conditional_with_encodings(dataset_dir, tmp_path):
+    """--encodings: a conditional UNet trains on per-file encodings (a
+    pickled {audio_file: encoding}), and the saved pipeline takes encoding=."""
+    import pickle
+
+    d = str(tmp_path / "seed")
+    unet = TorchUNet(TorchUNetConfig(**dict(COND_KW, sample_size=(RES, RES))))
+    unet.init_params(torch.Generator().manual_seed(0))
+    TorchPipeline(unet, TorchMel(x_res=RES, y_res=RES, device="cpu"), TorchDDIM(TorchSchedulerConfig(100)),
+                  device="cpu").save_pretrained(d)
+    rng = np.random.default_rng(1)
+    enc_path = str(tmp_path / "enc.pkl")
+    with open(enc_path, "wb") as fh:
+        pickle.dump({f: rng.standard_normal(12).astype(np.float32)
+                     for f in tdata.ImageSliceDataset(dataset_dir)._files}, fh)
+    out = str(tmp_path / "out")
+    run = RunConfig(dataset=dataset_dir, output_dir=out, train_batch_size=2, save_images_epochs=1000,
+                    scheduler="ddim", num_train_steps=100, from_pretrained=d, encodings=enc_path, max_steps=2,
+                    device="cpu")
+    result = run_training(run, tt.TrainConfig(lr_warmup_steps=1, learning_rate=1e-3))
+    assert result["steps"] == 2 and np.isfinite(result["losses"]).all()
+    pipe = TorchPipeline.from_pretrained(out, device="cpu")
+    assert pipe.unet.config.cross_attention_dim == 12
+    raw = pipe(batch_size=1, steps=2, encoding=rng.standard_normal((1, 12)), return_images_only=True)
+    assert raw.shape == (1, RES, RES)
+
+
+def test_training_cli_on_the_cpu(dataset_dir, seed_pipeline, tmp_path):
+    out = str(tmp_path / "cli")
+    cmd = [sys.executable, "-m", "audio_diffusion_torch.training", "--device", "cpu", "--dataset", dataset_dir,
+           "--max_steps", "2", "--from_pretrained", seed_pipeline, "--output_dir", out, "--train_batch_size", "2",
+           "--lr_warmup_steps", "1", "--num_train_steps", "100", "--save_images_epochs", "1000"]
+    env = {**os.environ, "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    proc = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "'steps': 2" in proc.stdout and os.path.exists(os.path.join(out, "unet", "diffusion_pytorch_model.bin"))
+
+
+def test_training_cli_refuses_what_the_port_does_not_run(dataset_dir):
+    from audio_diffusion_torch.training.__main__ import main
+
+    for extra in (["--param_sharding", "fsdp"], ["--mesh_data", "2"], ["--push_to_hub", "true"]):
+        with pytest.raises(SystemExit):
+            main(["--dataset", dataset_dir, "--device", "cpu", *extra])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            run_training(RunConfig(dataset=dataset_dir), tt.TrainConfig())
