@@ -1,9 +1,10 @@
 """Host-side audio I/O: decode, resample, WAV writing and WAV bytes (a copy of
 ``audio_diffusion_tpu/ops/audio_io.py`` and ``apps.py::wav_bytes``).
 
-numpy, scipy and the stdlib ``wave`` only. WAV decodes with scipy; other
-formats go through an ``ffmpeg`` binary when one is on the PATH and raise a
-clear error otherwise. The JAX package's native C++ decoder is not used here.
+Decoding goes the JAX package's way: a mono WAV through the native C++
+decoder and resampler (``data/native_audio.py``) when it builds, else scipy;
+mp3/m4a through the native media decoder, else an ``ffmpeg`` binary, else a
+clear error. :func:`decoder_for` names the decoder a file would take.
 """
 
 from __future__ import annotations
@@ -16,7 +17,6 @@ from io import BytesIO
 from typing import Tuple
 
 import numpy as np
-from scipy.signal import resample_poly
 
 
 def _read_wav(path: str) -> Tuple[np.ndarray, int]:
@@ -53,23 +53,55 @@ def resample(audio: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
     """Polyphase resample along the last axis."""
     if orig_sr == target_sr:
         return audio
+    from scipy.signal import resample_poly  # imported here: scipy.signal takes seconds to import
+
     g = np.gcd(int(orig_sr), int(target_sr))
     return resample_poly(audio, target_sr // g, orig_sr // g, axis=-1).astype(np.float32)
 
 
+def decoder_for(path: str) -> str:
+    """Which decoder :func:`load_audio` takes for ``path`` (mono): "native",
+    "scipy", "native-media", "ffmpeg" or "none"."""
+    from ..data import native_audio
+
+    if os.path.splitext(path)[1].lower() == ".wav":
+        return "native" if native_audio.available() else "scipy"
+    if native_audio.media_available():
+        return "native-media"
+    return "ffmpeg" if shutil.which("ffmpeg") else "none"
+
+
 def load_audio(path: str, sample_rate: int = 22050, mono: bool = True) -> np.ndarray:
-    """Decode an audio file to float32 mono at ``sample_rate`` (librosa.load parity)."""
+    """Decode an audio file to float32 mono at ``sample_rate`` (librosa.load parity).
+
+    Uses the native C++ decoder+resampler (native/audioio.cpp) when built;
+    falls back to scipy otherwise.
+    """
+    from ..data import native_audio
+
     ext = os.path.splitext(path)[1].lower()
+    if ext == ".wav" and mono:
+        native = native_audio.load_wav(path, sample_rate)
+        if native is not None:
+            return native
     if ext == ".wav":
         audio, sr = _read_wav(path)
     else:
         if not mono:
             raise ValueError("compressed formats decode with a mono downmix; "
                              "mono=False is only supported for WAV files")
-        if not shutil.which("ffmpeg"):
-            raise ValueError(f"Cannot decode {path!r}: no ffmpeg binary was found. Install ffmpeg or convert "
-                             "the file to WAV.")
-        audio, sr = _read_via_ffmpeg(path, sample_rate)
+        decoded = native_audio.load_media(path, sample_rate)
+        if decoded is not None:
+            return decoded
+        if shutil.which("ffmpeg"):
+            audio, sr = _read_via_ffmpeg(path, sample_rate)
+        else:
+            raise ValueError(
+                f"Cannot decode {path!r}: the native media decoder "
+                "(native/mediadec.cpp, needs the system libavformat/libavcodec) "
+                "could not be built and no ffmpeg binary was found. Install the "
+                "ffmpeg libraries or convert to WAV."
+            )
     if mono and audio.shape[0] > 1:
         audio = audio.mean(axis=0, keepdims=True)
     audio = resample(audio, sr, sample_rate)

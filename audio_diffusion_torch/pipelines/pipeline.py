@@ -33,6 +33,7 @@ from ..models.vae import AutoencoderKL
 from ..schedulers import DDIMScheduler, DDPMScheduler, load_scheduler
 from ..schedulers.common import step_noises
 from ..utils import diffusers_io
+from ..utils.hub import resolve_pretrained
 
 LATENT_SCALE = 0.18215  # SD latent scaling (pipeline.py:47)
 
@@ -63,11 +64,6 @@ class PipelineOutput:
     sample_rate: int
     audios: List[np.ndarray]
     raw_images: np.ndarray  # (B, H, W) uint8
-
-
-def _looks_like_hub_id(name: str) -> bool:
-    parts = name.split("/")
-    return len(parts) == 2 and all(parts) and not name.startswith((".", "/", "~"))
 
 
 class AudioDiffusionPipeline:
@@ -378,15 +374,10 @@ class AudioDiffusionPipeline:
         UNet and VAE (weights stay f32), as the JAX method does. The
         diffusers config carries no ``fused_groupnorm``: without
         ``fused_groupnorm=True`` the loaded UNet takes torch's GroupNorm, not
-        the kernel. Hub ids are not resolved: download the repository
-        elsewhere and pass its local path."""
-        if not os.path.isdir(directory):
-            if _looks_like_hub_id(directory):
-                raise FileNotFoundError(
-                    f"{directory!r} looks like a Hub model id; the port loads local directories only (no "
-                    "huggingface_hub, no HF cache). Download the repository on a connected machine and pass "
-                    "its local path.")
-            raise FileNotFoundError(f"{directory!r} is not a pipeline directory")
+        the kernel. ``directory`` may also be a Hub model id like
+        ``teticio/audio-diffusion-256``, resolved from the local HF cache
+        only (:func:`..utils.hub.resolve_pretrained`)."""
+        directory = resolve_pretrained(directory)
         unet_dir = os.path.join(directory, "unet")
         unet_cfg = diffusers_io.unet_config_from_diffusers(diffusers_io.read_json(f"{unet_dir}/config.json"))
         overrides = {k: v for k, v in (("dtype", dtype), ("fused_groupnorm", fused_groupnorm)) if v is not None}

@@ -12,9 +12,10 @@ checkpoint beside it, and eval samples into tensorboard every
 
 What differs: one device (the JAX mesh has no counterpart, ``mesh_data`` is
 not a field); ``--vae`` and ``--from_pretrained`` read the diffusers layout
-through the port's loaders (Hub ids raise: no network); ``push_to_hub``
-raises for the same reason. The UNet is built with ``fused_groupnorm=False``
-as the JAX loop builds it: the GroupNorm+SiLU kernel has no backward.
+through the port's loaders (a Hub id resolves from the local HF cache
+only); ``push_to_hub`` raises: the port has no network path. The UNet is
+built with ``fused_groupnorm=False`` as the JAX loop builds it: the
+GroupNorm+SiLU kernel has no backward.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from ..models.unet2d import UNet2D, conditional_config, unconditional_config
 from ..pipelines.pipeline import AudioDiffusionPipeline
 from ..schedulers import DDIMScheduler, DDPMScheduler, SchedulerConfig
 from ..utils import diffusers_io
+from ..utils.hub import ensure_repo, resolve_pretrained
 from .checkpoint import make_manager, restore_train_state, save_train_state
 from .train_unet import TrainConfig, init_train_state, make_lr_schedule, make_train_step, precompute_latent_moments
 
@@ -69,11 +71,11 @@ class RunConfig:
 
 def load_vae(path: str, device):
     """The AutoencoderKL of a diffusers-layout directory (``<path>`` or
-    ``<path>/vqvae``), f32 as saved: encode precision is part of the data."""
+    ``<path>/vqvae``; a Hub id resolves from the local HF cache), f32 as
+    saved: encode precision is part of the data."""
     from ..models.vae import AutoencoderKL
 
-    if not os.path.isdir(path):
-        raise FileNotFoundError(f"--vae {path!r} is not a directory (Hub ids are not resolved: no network)")
+    path = resolve_pretrained(path)
     vae_dir = path if os.path.exists(os.path.join(path, "config.json")) else os.path.join(path, "vqvae")
     vae = AutoencoderKL(diffusers_io.vae_config_from_diffusers(diffusers_io.read_json(f"{vae_dir}/config.json")))
     vae.load_state_dict(diffusers_io.load_state_dict(vae_dir), strict=True)
@@ -86,7 +88,7 @@ def _to_device(x, device):
 
 def run_training(run: RunConfig, train: TrainConfig) -> dict:
     if run.push_to_hub:
-        raise RuntimeError("push_to_hub: the port has no network path; copy output_dir to a connected machine")
+        ensure_repo(None, run.output_dir)  # raises: the port has no network path
     device = torch.device(run.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("run_training: CUDA device requested but torch.cuda is not available; "

@@ -41,7 +41,28 @@ Phases, one line each (plus detail lines):
              forward re-run on row 0 alone, with cuDNN's defaults, with
              cudnn.deterministic and with cuDNN off: the calls whose row
              depends on the batch, the drift they cause, the forward's time
-  7. cond    the conditional tier at the flagship's full width: the
+  7. apps    the convenience layer at full width: the [main] pipeline saved in
+             the diffusers layout and loaded through ``AudioDiffusion(dir,
+             dtype="bfloat16", fused_groupnorm=True)``, 50 DDIM steps: a
+             generation, an audio-to-audio generation with a 1 s mask,
+             ``loop_it`` on a 120 bpm click track and on the generated clip,
+             ``outpaint`` of 2 windows from a 6 s clip at a 2 s overlap, serial
+             ``remix`` of 3 windows at start_step 25 (every window from the
+             pinned generator state; the first window bitwise a direct call)
+             and parallel ``remix`` (one call of 3 rows), the app callback
+             through ``apps.get_model`` and ``wav_bytes``; output lengths by
+             the stitch arithmetic, 64 GroupNorm+SiLU and 6 attention launches
+             per denoise step of every call, each call's wall time.
+             [prepare]: four synthetic WAVs (22.05 kHz mono, 44.1 kHz stereo,
+             one with a silent slice, one shorter than a slice) through
+             ``find_audio_files`` -> ``file_to_examples`` on the card and on the
+             CPU (the same slices kept, images within 1 uint8, mean < 0.02, PNGs
+             that decode to the images) and ``AudioEncoder.encode`` of the files
+             on the card against its CPU forward; the decoder and the time per
+             file. [golden]: the Mel on the card at 256 (hop 512) and 64 (hop
+             1024) against tests/goldens/mel_goldens.npz: the forward image and
+             the round-trip MAE at tests/test_mel.py's limits
+  8. cond    the conditional tier at the flagship's full width: the
              cross-attention UNet (conditional_config, 64x64 latents, bf16,
              fused GroupNorm), the 512 VAE and Mel, DDIM at 50 steps, seeded
              random weights. The AudioEncoder (f32) encodes 4 synthetic clips
@@ -53,24 +74,25 @@ Phases, one line each (plus detail lines):
              512 fidelity gates, and 4 encoded HTTP requests through
              ``make_server`` in one batch, a seed bitwise the same with other
              companions
-  8. attn-grad  FlashMHA (the kernel forward, autograd through the
+  9. attn-grad  FlashMHA (the kernel forward, autograd through the
              reference_attention-order recomputation backward) on every route:
              forward bitwise flash_mha's, gradients bitwise autograd's of the
              reference and against the f32 math; the backward timed beside
              SDPA's forward+backward and its bound
-  9. train   the training slice at full width through ``run_training``: a
+ 10. train   the training slice at full width through ``run_training``: a
              synthetic 64-slice PNG dataset, a seeded 256 VAE in the diffusers
              layout, the latent-256 UNet in bf16 with cached latents, micro 16
              x accum 2, 12 steps, then the same run resumed to 16; losses fall,
              6 x accum forward launches and backwards per step, no GroupNorm
              kernel; the saved pipeline answers a request; step breakdown,
              peak memory and a profile of 2 steps
- 10. train-pixel  the pixel-256 UNet (bf16, batch 4) takes 3 steps through
+ 11. train-pixel  the pixel-256 UNet (bf16, batch 4) takes 3 steps through
              ``make_train_step``: the mma route under autograd
- 11. train-vae  the 256 LDM VAE with its PatchGAN, generator and
+ 12. train-vae  the 256 LDM VAE with its PatchGAN, generator and
              discriminator steps alternating, the adversarial terms on from step 2
 Then one JSON line with each kernel's launches (``launches``: the [main]
-requests; ``serve_launches``: the [serve] traffic; ``cond_launches``: the
+requests; ``serve_launches``: the [serve] traffic; ``apps_launches``: the
+[apps] calls; ``cond_launches``: the
 [cond] requests; ``train_launches``: the [train] run's forwards and
 backwards), error and times, the card's
 name and power limit as nvidia-smi prints them, and as the last line
@@ -133,6 +155,8 @@ TRAIN_LR = 3e-4
 TRAIN_ATTN = 6  # SelfAttention2D calls per latent-256 UNet forward: 5 at N=4, 1 at N=1
 PIXEL_BATCH, PIXEL_STEPS = 4, 3
 VAE_TRAIN_BATCH, VAE_TRAIN_STEPS, VAE_DISC_START = 4, 4, 2
+# The convenience layer on the latent-256 pipeline: 2 s overlaps (the stitch functions' default)
+APPS_OVERLAP_SECS, APPS_OUTPAINT_WINDOWS, APPS_REMIX_WINDOWS, APPS_REMIX_START = 2.0, 2, 3, 25
 
 
 def fail(msg: str) -> None:
@@ -1540,7 +1564,7 @@ class _LogLines:
 
 def phase_train(card: str, root: Path) -> dict:
     """The training slice through ``run_training`` at full width (see the
-    module docstring, phase 9). Returns the launch counts of both runs."""
+    module docstring, phase 10). Returns the launch counts of both runs."""
     import numpy as np
     import torch
 
@@ -1791,7 +1815,336 @@ def phase_train_vae(card: str, data: Path):
     torch.cuda.empty_cache()
 
 
-PHASE_GROUPS = ("kernels", "main", "cond", "train")
+# ------------------------------------------------- the convenience layer and data path
+
+def synth_audio(num_samples: int, sr: int = 22050, seed: int = 0):
+    """Deterministic harmonic-rich test signal (chord + AM + noise floor): the
+    signal of tests/conftest.py::synth_audio, which made tests/goldens/mel_goldens.npz."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(num_samples) / sr
+    audio = np.zeros(num_samples, dtype=np.float64)
+    for f0, amp in [(220.0, 0.5), (277.2, 0.35), (330.0, 0.3), (440.0, 0.2), (880.0, 0.1)]:
+        audio += amp * np.sin(2 * np.pi * f0 * t + rng.uniform(0, 2 * np.pi))
+    audio *= 0.6 + 0.4 * np.sin(2 * np.pi * 1.5 * t)
+    audio += 0.001 * rng.standard_normal(num_samples)
+    return (audio / np.max(np.abs(audio)) * 0.8).astype(np.float32)
+
+
+def click_track(bpm: float, seconds: float, sr: int = 22050):
+    """Decaying noise bursts on the beat grid over a quiet 220 Hz tone (tests/test_beat_stitch.py::click_track)."""
+    import numpy as np
+
+    n = int(seconds * sr)
+    audio = np.zeros(n, dtype=np.float32)
+    period = int(60 / bpm * sr)
+    rng = np.random.default_rng(0)
+    burst = (rng.standard_normal(800) * np.exp(-np.arange(800) / 120)).astype(np.float32)
+    for start in range(0, n - 800, period):
+        audio[start : start + 800] += burst
+    audio += 0.05 * np.sin(2 * np.pi * 220 * np.arange(n) / sr).astype(np.float32)
+    return audio
+
+
+class _CountedPipe:
+    """A pipeline whose every call must launch the GroupNorm+SiLU kernel 64
+    times and flash_mha 6 times per denoise step (the UNet's forwards, counted
+    by a hook), with STEPS - start_step steps; each call's wall time, the
+    shape of its raw_audio and its generator's state are kept."""
+
+    def __init__(self, pipe, name: str):
+        self.pipe, self.name, self.calls, self.forwards = pipe, name, [], 0
+        self.hook = pipe.unet.register_forward_pre_hook(self._forward)
+
+    def _forward(self, *_):
+        self.forwards += 1
+
+    def __getattr__(self, name):
+        return getattr(self.pipe, name)
+
+    def __call__(self, **kw):
+        import numpy as np
+        import torch
+
+        from audio_diffusion_torch.ops import attention as at
+        from audio_diffusion_torch.ops import fused_groupnorm as gn
+
+        gen = kw.get("generator")
+        state = gen.get_state() if gen is not None else None
+        before, f0 = (gn.group_norm_silu.launches, at.flash_mha.launches), self.forwards
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.pipe(**kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        f = self.forwards - f0
+        delta = (gn.group_norm_silu.launches - before[0], at.flash_mha.launches - before[1])
+        if f != STEPS - kw.get("start_step", 0) or delta != (64 * f, 6 * f):
+            fail(f"[apps] {self.name}: {f} denoise steps with launches (group_norm_silu, flash_mha) {delta}; "
+                 f"expected {STEPS - kw.get('start_step', 0)} steps and 64 and 6 launches per step")
+        raw = kw.get("raw_audio")
+        self.calls.append({"wall": wall, "steps": f, "state": state,
+                           "raw_audio": None if raw is None else np.asarray(raw).shape})
+        return out
+
+
+def phase_apps(pipe, card: str) -> dict:
+    """The convenience layer at full width on the latent-256 pipeline, saved
+    in the diffusers layout and loaded through ``AudioDiffusion(dir,
+    dtype="bfloat16", fused_groupnorm=True)``: a generation, an audio-to-audio
+    generation with a 1 s mask, ``loop_it``, ``outpaint``, serial and parallel
+    ``remix`` and the app callback. Returns the kernels' launches on this path."""
+    import functools
+    import io
+    import tempfile
+    import wave
+
+    import numpy as np
+    import torch
+
+    from audio_diffusion_torch import apps
+    from audio_diffusion_torch.audio_diffusion import AudioDiffusion
+    from audio_diffusion_torch.ops import attention as at
+    from audio_diffusion_torch.ops import fused_groupnorm as gn
+    from audio_diffusion_torch.pipelines import stitch
+
+    sr = pipe.mel.get_sample_rate()
+    gen_len = (pipe.mel.x_res - 1) * pipe.mel.hop_length  # samples of one generated window
+    slice_size = pipe.mel.x_res * pipe.mel.hop_length
+    overlap = int(APPS_OVERLAP_SECS * sr)
+    stride = slice_size - overlap
+    counters = (gn.group_norm_silu, at.flash_mha)
+
+    def gen(seed):
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    def check_audio(name, audio, length):
+        if np.asarray(audio).shape != (length,) or not np.isfinite(audio).all():
+            fail(f"[apps] {name}: audio {np.asarray(audio).shape}, expected ({length},) and finite")
+
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        pipe.save_pretrained(d)
+        ad = AudioDiffusion(d, dtype="bfloat16", fused_groupnorm=True, device="cuda")
+        t_load = time.perf_counter() - t0
+        if not (ad.pipe.unet.config.fused_groupnorm and ad.pipe.unet.config.dtype == "bfloat16"):
+            fail(f"[apps] AudioDiffusion loaded {ad.pipe.unet.config}")
+        ad.pipe = counted = _CountedPipe(ad.pipe, "AudioDiffusion")
+        counted(batch_size=1, steps=STEPS, generator=gen(0), return_arrays=True)  # warm-up
+        for c in counters:
+            c.launches = 0
+        walls = {}
+
+        image, (sr_out, audio) = ad.generate_spectrogram_and_audio(steps=STEPS, generator=gen(401))
+        walls["generate"] = counted.calls[-1]["wall"]
+        if image.size != (256, 256) or sr_out != sr:
+            fail(f"[apps] generate: image {image.size}, sample rate {sr_out}")
+        check_audio("generate", audio, gen_len)
+        clip = synth_audio(slice_size, seed=5)
+        image2, (_, audio2) = ad.generate_spectrogram_and_audio_from_audio(raw_audio=clip, steps=STEPS,
+                                                                          mask_start_secs=1.0, generator=gen(402))
+        walls["audio-to-audio, 1 s mask"] = counted.calls[-1]["wall"]
+        check_audio("audio-to-audio", audio2, gen_len)
+
+        t0 = time.perf_counter()
+        clicks = click_track(120, 6.0, sr)
+        loop = AudioDiffusion.loop_it(clicks, sr)
+        walls["loop_it, click track"] = time.perf_counter() - t0
+        bars = None if loop is None or len(loop) % 12 else len(loop) / 12 / (2 * sr)  # a 4-beat bar is 2 s
+        if bars is None or round(bars) < 1 or abs(bars - round(bars)) > 0.05:
+            fail(f"[apps] loop_it on a 120 bpm click track gave {None if loop is None else len(loop)} samples, "
+                 f"expected 12 loops of whole 2 s bars")
+        generated_loop = AudioDiffusion.loop_it(audio, sr)
+
+        initial = synth_audio(6 * sr, seed=6)
+        t0 = time.perf_counter()
+        n0 = len(counted.calls)
+        out = stitch.outpaint(counted, initial, APPS_OUTPAINT_WINDOWS, overlap_secs=APPS_OVERLAP_SECS,
+                              steps=STEPS, generator=gen(403))
+        walls["outpaint"] = time.perf_counter() - t0
+        check_audio("outpaint", out, len(initial) + APPS_OUTPAINT_WINDOWS * (gen_len - overlap))
+        if len(counted.calls) - n0 != APPS_OUTPAINT_WINDOWS:
+            fail(f"[apps] outpaint made {len(counted.calls) - n0} calls")
+
+        track = synth_audio(APPS_REMIX_WINDOWS * stride + 1000, seed=7)
+        remix_len = gen_len + (APPS_REMIX_WINDOWS - 1) * (gen_len - overlap)
+        n0 = len(counted.calls)
+        t0 = time.perf_counter()
+        serial = stitch.remix(counted, track, start_step=APPS_REMIX_START, overlap_secs=APPS_OVERLAP_SECS,
+                              steps=STEPS, generator=gen(404))
+        walls["remix, serial"] = time.perf_counter() - t0
+        check_audio("serial remix", serial, remix_len)
+        remix_calls = counted.calls[n0:]
+        if len(remix_calls) != APPS_REMIX_WINDOWS or any(not torch.equal(c["state"], remix_calls[0]["state"])
+                                                        for c in remix_calls):
+            fail(f"[apps] serial remix: {len(remix_calls)} calls, or not every window from the pinned state")
+        _, (_, first) = counted(batch_size=1, raw_audio=track[:slice_size], start_step=APPS_REMIX_START,
+                                steps=STEPS, generator=gen(404), return_dict=False)
+        if not np.array_equal(serial[:gen_len], first[0]):
+            fail(f"[apps] serial remix's first window differs from a direct call with the same generator state: "
+                 f"max abs diff {np.abs(serial[:gen_len] - first[0]).max()}")
+
+        n0 = len(counted.calls)
+        t0 = time.perf_counter()
+        parallel = stitch.remix(counted, track, start_step=APPS_REMIX_START, overlap_secs=APPS_OVERLAP_SECS,
+                                steps=STEPS, generator=gen(405), parallel=True)
+        walls["remix, parallel"] = time.perf_counter() - t0
+        check_audio("parallel remix", parallel, remix_len)
+        if [c["raw_audio"] for c in counted.calls[n0:]] != [(APPS_REMIX_WINDOWS, slice_size)]:
+            fail(f"[apps] parallel remix calls {[c['raw_audio'] for c in counted.calls[n0:]]}, expected one of "
+                 f"{APPS_REMIX_WINDOWS} rows")
+
+        factory = functools.partial(AudioDiffusion, dtype="bfloat16", fused_groupnorm=True)
+        apps._cache.clear()
+        t0 = time.perf_counter()
+        model = apps.get_model(d, factory, device="cuda")
+        t_app_load = time.perf_counter() - t0
+        model.pipe = app_counted = _CountedPipe(model.pipe, "apps")
+        t0 = time.perf_counter()
+        image3, (sr3, audio3), (_, loop3) = apps.generate_spectrogram_audio_and_loop(d, factory, device="cuda")
+        data = apps.wav_bytes(loop3, sr3)
+        walls["apps callback + wav_bytes"] = time.perf_counter() - t0
+        with wave.open(io.BytesIO(data)) as w:
+            if (w.getframerate(), w.getnframes(), w.getnchannels()) != (sr, len(loop3), 1):
+                fail(f"[apps] wav_bytes: {w.getframerate()} Hz, {w.getnframes()} frames, {w.getnchannels()} channels")
+        check_audio("apps callback", audio3, gen_len)
+        if len(app_counted.calls) != 1 or image3.size != (256, 256) or len(loop3) == 0:
+            fail(f"[apps] the callback made {len(app_counted.calls)} calls, image {image3.size}")
+        apps._cache.clear()
+        counted.hook.remove()
+        app_counted.hook.remove()
+
+    launches = {c.__name__: c.launches for c in counters}
+    calls = counted.calls[1:] + app_counted.calls
+    steps = sum(c["steps"] for c in calls)
+    if launches != {"group_norm_silu": 64 * steps, "flash_mha": 6 * steps}:
+        fail(f"[apps] launches {launches} over {steps} denoise steps")
+    print(f"[apps] saved + loaded through AudioDiffusion(dtype=bfloat16, fused_groupnorm=True) in {t_load:.2f} s, "
+          f"apps.get_model {t_app_load:.2f} s; walls: "
+          + "; ".join(f"{k} {v:.4f} s" for k, v in walls.items())
+          + f"; loop_it of the generated clip: {'none' if generated_loop is None else len(generated_loop)} samples  "
+          f"[{card}]")
+    print(f"[apps] ok: {len(calls)} pipeline calls, {steps} denoise steps, launches {launches} = 64 and 6 per denoise "
+          f"step of every call; lengths by the stitch arithmetic; serial remix pinned (first window bitwise a direct "
+          f"call), parallel remix one call of {APPS_REMIX_WINDOWS} rows")
+    return launches
+
+
+def phase_prepare(card: str):
+    """Dataset preparation on the card: four synthetic WAVs through
+    ``find_audio_files`` -> ``file_to_examples`` on the card and on the CPU,
+    and ``AudioEncoder.encode`` of the files on the card against its CPU forward."""
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from audio_diffusion_torch.data import prepare
+    from audio_diffusion_torch.mel import Mel
+    from audio_diffusion_torch.models import AudioEncoder
+    from audio_diffusion_torch.ops import audio_io
+
+    mels = {dev: Mel(x_res=256, y_res=256, hop_length=512, device=dev) for dev in ("cuda", "cpu")}
+    n = mels["cuda"].slice_size
+    with tempfile.TemporaryDirectory() as d:
+        audio_io.write_wav(f"{d}/a_mono22k.wav", synth_audio(int(2.3 * n), seed=0), 22050)
+        audio_io.write_wav(f"{d}/b_stereo44k.wav",
+                           np.stack([synth_audio(int(4.4 * n), 44100, seed=s) for s in (1, 2)]), 44100)
+        audio_io.write_wav(f"{d}/c_silence.wav",
+                           np.concatenate([synth_audio(n, seed=3), np.zeros(int(1.5 * n), np.float32)]), 22050)
+        audio_io.write_wav(f"{d}/d_short.wav", synth_audio(int(0.4 * n), seed=4), 22050)
+        files = prepare.find_audio_files(d)
+        prepare.file_to_examples(mels["cuda"], files[0])  # warm-up
+        kept, worst, times = {}, (0, 0.0), {"cuda": [], "cpu": []}
+        for f in files:
+            examples = {}
+            for dev, mel in mels.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                examples[dev] = prepare.file_to_examples(mel, f)
+                times[dev].append(time.perf_counter() - t0)
+            slices = [[e["slice"] for e in examples[dev]] for dev in ("cuda", "cpu")]
+            if slices[0] != slices[1]:
+                fail(f"[prepare] {f}: slices kept on the card {slices[0]}, on the CPU {slices[1]}")
+            kept[Path(f).name] = slices[0]
+            for a, b in zip(examples["cuda"], examples["cpu"]):
+                ia, ib = (np.asarray(Image.open(io.BytesIO(e["image"]["bytes"]))).astype(int) for e in (a, b))
+                diff = np.abs(ia - ib)
+                worst = max(worst, (int(diff.max()), float(diff.mean())))
+                if ia.shape != (256, 256) or diff.max() > 1 or diff.mean() >= 0.02:
+                    fail(f"[prepare] {f} slice {a['slice']}: card vs CPU image max {diff.max()}, "
+                         f"mean {diff.mean()}")
+        mel = mels["cuda"]
+        mel.load_audio(files[0])
+        direct = mel.spectrogram_images_from_audio(np.stack([mel.get_audio_slice(i) for i in range(2)])).cpu().numpy()
+        png = np.asarray(Image.open(io.BytesIO(prepare.file_to_examples(mel, files[0])[1]["image"]["bytes"])))
+        if not np.array_equal(png, direct[1]):
+            fail("[prepare] a PNG does not decode to the Mel's image")
+        want = {"a_mono22k.wav": [0, 1], "b_stereo44k.wav": [0, 1], "c_silence.wav": [0], "d_short.wav": [0]}
+        if kept != want:
+            fail(f"[prepare] slices kept {kept}, expected {want} (the silent slice of c skipped)")
+
+        enc = AudioEncoder().init_params(torch.Generator().manual_seed(15)).eval()
+        dev = AudioEncoder().eval()
+        dev.load_state_dict(enc.state_dict())
+        dev = dev.to("cuda")
+        dev.encode(files)  # warm-up
+        images = []
+        hook = dev.register_forward_pre_hook(lambda mod, args: images.append(args[0]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        per_slice = dev.encode(files, pool=None)
+        torch.cuda.synchronize()
+        enc_wall = time.perf_counter() - t0
+        hook.remove()
+        pooled = dev.encode(files)
+        with torch.inference_mode():
+            ref = enc(images[0].cpu())
+        got = torch.cat(per_slice).cpu()
+        err = (got - ref).abs().max().item()
+        tol = 1e-4 * max(1.0, ref.abs().max().item())  # as [cond]: sum order over a 41,472-long dot, TF32 off
+        means = torch.stack([s.mean(0) for s in per_slice])
+        if not (got.shape == ref.shape and err <= tol and torch.allclose(pooled, means, rtol=0, atol=1e-6)):
+            fail(f"[prepare] AudioEncoder.encode on the card vs its CPU forward: max abs err {err} > {tol}")
+    decoders = sorted({audio_io.decoder_for(f) for f in files})
+    print(f"[prepare] {len(files)} WAVs (22.05 kHz mono, 44.1 kHz stereo, a silent slice, shorter than a slice), "
+          f"decoder {decoders}: slices kept {kept}; card vs CPU images max/mean diff {worst[0]}/{worst[1]:.5f}; "
+          f"file_to_examples s per file, card {[round(t, 4) for t in times['cuda']]}, CPU "
+          f"{[round(t, 4) for t in times['cpu']]}  [{card}]")
+    print(f"[prepare] ok: AudioEncoder.encode of the {len(files)} files ({got.shape[0]} slices) on the card in "
+          f"{enc_wall:.4f} s, against its CPU forward max abs err {err:.3g} (tol {tol:.3g})  [{card}]")
+
+
+def phase_golden(card: str):
+    """The port's Mel on the card against tests/goldens/mel_goldens.npz at the
+    limits of tests/test_mel.py: the forward image (max |diff| <= 1, mean <
+    0.02) and the Griffin-Lim round-trip MAE (below the frozen value + 1.1)."""
+    import numpy as np
+    import torch
+
+    from audio_diffusion_torch.mel import Mel
+
+    goldens = np.load(REPO / "tests" / "goldens" / "mel_goldens.npz")
+    rows = []
+    for res, hop, seed in ((256, 512, 0), (64, 1024, 4)):
+        mel = Mel(x_res=res, y_res=res, hop_length=hop, device="cuda")
+        img = mel.spectrogram_images_from_audio(synth_audio(mel.slice_size, seed=seed)[None])
+        diff = np.abs(img[0].cpu().numpy().astype(int) - goldens[f"image_{res}"].astype(int))
+        rec = mel.images_to_audio(img)[0]
+        img2 = mel.spectrogram_images_from_audio(torch.nn.functional.pad(rec, (0, mel.slice_size - rec.shape[0]))[None])
+        mae = (img.float() - img2.float()).abs().mean().item()
+        bound = float(goldens[f"roundtrip_mae_{res}"]) + 1.1
+        if diff.max() > 1 or diff.mean() >= 0.02 or not mae < bound:
+            fail(f"[golden] {res}x{res}: image max {diff.max()} mean {diff.mean()}, round-trip MAE {mae} (< {bound})")
+        rows.append(f"{res}x{res} hop {hop}: image max/mean diff {diff.max()}/{diff.mean():.5f}, round-trip MAE "
+                    f"{mae:.4f} (< {bound:.4f})")
+    print(f"[golden] ok: " + "; ".join(rows) + f"  [{card}]")
+
+
+PHASE_GROUPS = ("kernels", "main", "apps", "cond", "train")
 
 
 def main(argv=None) -> int:
@@ -1800,8 +2153,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive the port's paths on one GPU and check them.")
     ap.add_argument("--only", default=",".join(PHASE_GROUPS),
                     help="comma-separated phase groups for a partial run (kernels: gn, attn, attn-sweep, ref; main: "
-                         "main, layers, profile, fidelity, serve, tier; cond; train: attn-grad, train, train-pixel, "
-                         "train-vae); a partial run prints no result lines")
+                         "main, layers, profile, fidelity, serve, tier; apps: apps, prepare, golden; cond; train: "
+                         "attn-grad, train, train-pixel, train-vae); a partial run prints no result lines")
     only = set(ap.parse_args(argv).only.split(","))
     if not only <= {*PHASE_GROUPS, "tier"}:
         ap.error(f"--only takes {PHASE_GROUPS} and tier (the [serve] phase's tier probe alone)")
@@ -1834,16 +2187,22 @@ def main(argv=None) -> int:
         at_err, at_t = phase_attention(card)
         phase_attention_sweep(card)
         phase_unet_reference()
-    if "main" in only:
+    if "main" in only or "apps" in only:
         t0 = time.perf_counter()
         pipe = build_pipeline()
         print(f"[main] built full-width latent-256 pipeline (bf16, fused GroupNorm) in "
               f"{time.perf_counter() - t0:.2f} s")
+    if "main" in only:
         launches = phase_main(pipe, card)
         phase_layers(pipe, card)
         phase_profile(pipe, card)
         phase_fidelity(pipe, card)
         serve_launches = phase_serve(pipe, card)
+    if "apps" in only:
+        apps_launches = phase_apps(pipe, card)
+        phase_prepare(card)
+        phase_golden(card)
+    if "main" in only or "apps" in only:
         del pipe
         torch.cuda.empty_cache()
     if "tier" in only and "main" not in only:
@@ -1879,14 +2238,14 @@ def main(argv=None) -> int:
     gn_row = {"name": "group_norm_silu", "route": "cuda", "source": "audio_diffusion_torch/csrc/group_norm_silu.cu",
               "replaces": f"{pallas_gn}:51, {pallas_gn}:66",
               "launches": launches["group_norm_silu"], "launches_per_request": 64 * STEPS,
-              "serve_launches": serve_launches["group_norm_silu"],
+              "serve_launches": serve_launches["group_norm_silu"], "apps_launches": apps_launches["group_norm_silu"],
               "cond_launches": cond_launches["group_norm_silu"], "cond_launches_per_request": COND_NORMS * STEPS,
               "train_launches": {"forward": train_launches["group_norm_silu"], "backward": 0},
               "max_abs_err": gn_err["f32"], "bf16_max_ulps": gn_err["bf16_ulps"]}
     at_row = {"name": "flash_mha", "route": "cuda", "source": "audio_diffusion_torch/csrc/mha.cu",
               "replaces": "audio_diffusion_tpu/ops/pallas_attention.py:55", "launches": launches["flash_mha"],
               "launches_per_request": 6 * STEPS, "serve_launches": serve_launches["flash_mha"],
-              "cond_launches": cond_launches["flash_mha"],
+              "apps_launches": apps_launches["flash_mha"], "cond_launches": cond_launches["flash_mha"],
               "train_launches": {"forward": train_launches["flash_mha"],
                                  "backward": train_launches["FlashMHA.backward"]},
               "grad_ms": grad_t["ms"], "grad_graph_ms": grad_t["graph_ms"], "grad_library_ms": grad_t["library_ms"],
@@ -1898,6 +2257,8 @@ def main(argv=None) -> int:
             fail(f"kernel {k['name']} was not launched on the main path")
     if not (train_launches["flash_mha"] > 0 and train_launches["FlashMHA.backward"] > 0):
         fail("flash_mha and its backward were not launched on the training path")
+    if not all(v > 0 for v in apps_launches.values()):
+        fail(f"the kernels were not launched on the convenience layer's path: {apps_launches}")
     print(f"(times per UNet forward at batch 32, bf16: ms by CUDA events around eager calls, host gaps included; "
           f"graph_ms replayed from a CUDA graph; library_ms: torch's F.group_norm + F.silu (two calls) and "
           f"F.scaled_dot_product_attention; grad_*: the attention backward per latent-256 UNet forward at batch 32 "

@@ -5,6 +5,7 @@ GPU-marked tests run on a machine with a card and no JAX:
 
 Without a card those tests skip; the CPU dispatch tests run everywhere."""
 
+import numpy as np
 import pytest
 import torch
 
@@ -458,3 +459,91 @@ def test_one_bf16_train_step_of_a_tiny_unet_on_the_card():
             gn.group_norm_silu.launches - before[2]) == (2 * n_attn, 2 * n_attn, 0)
     assert all(p.grad is not None for p in unet.parameters())
     assert state.step == 1 and bool(torch.isfinite(metrics["loss"])) and float(metrics["grad_norm"]) > 0
+
+
+# --------------------------------------------------------- convenience layer
+
+def _tiny_saved_pipeline(path):
+    """A tiny latent-free pipeline with an attention level, saved in the
+    diffusers layout; returns its ResnetBlock2D and SelfAttention2D counts."""
+    from audio_diffusion_torch.mel import Mel
+    from audio_diffusion_torch.models import UNet2D, UNetConfig
+    from audio_diffusion_torch.models.unet2d import ResnetBlock2D, SelfAttention2D
+    from audio_diffusion_torch.pipelines import AudioDiffusionPipeline
+    from audio_diffusion_torch.schedulers import DDIMScheduler
+
+    cfg = UNetConfig(sample_size=(16, 16), block_out_channels=(32, 64), down_block_types=("DownBlock2D",
+                     "AttnDownBlock2D"), up_block_types=("AttnUpBlock2D", "UpBlock2D"), layers_per_block=1,
+                     norm_num_groups=8)
+    cpu = AudioDiffusionPipeline(UNet2D(cfg).init_params(torch.Generator().manual_seed(0)),
+                                 Mel(x_res=16, y_res=16, device="cpu"), DDIMScheduler(), device="cpu")
+    cpu.save_pretrained(path)
+    return (sum(isinstance(m, ResnetBlock2D) for m in cpu.unet.modules()),
+            sum(isinstance(m, SelfAttention2D) for m in cpu.unet.modules()))
+
+
+@pytest.mark.cuda
+def test_audio_diffusion_on_the_card_takes_both_kernels(tmp_path):
+    """AudioDiffusion(..., fused_groupnorm=True) on the card: every denoise
+    step of a generation and of an audio-to-audio call with a mask launches
+    the GroupNorm+SiLU kernel on every ResnetBlock2D norm and flash_mha once
+    per attention layer."""
+    _cuda()
+    from audio_diffusion_torch.audio_diffusion import AudioDiffusion
+
+    n_res, n_attn = _tiny_saved_pipeline(str(tmp_path))
+    ad = AudioDiffusion(str(tmp_path), fused_groupnorm=True, device="cuda")
+    clip = torch.randn(16 * 512, generator=torch.Generator().manual_seed(2)).numpy() * 0.3
+    for call, steps in ((lambda g: ad.generate_spectrogram_and_audio(steps=3, generator=g), 3),
+                        (lambda g: ad.generate_spectrogram_and_audio_from_audio(
+                            raw_audio=clip, start_step=1, steps=3, mask_start_secs=0.1, generator=g), 2)):
+        before = (gn.group_norm_silu.launches, at.flash_mha.launches)
+        image, (sr, audio) = call(torch.Generator(device="cuda").manual_seed(1))
+        torch.cuda.synchronize()
+        assert (gn.group_norm_silu.launches - before[0], at.flash_mha.launches - before[1]) == \
+            (2 * n_res * steps, n_attn * steps)
+        assert image.size == (16, 16) and sr == 22050 and audio.shape == (15 * 512,)
+        assert torch.isfinite(torch.from_numpy(audio)).all()
+
+
+@pytest.mark.cuda
+def test_stitch_on_the_card_stays_on_the_device(tmp_path):
+    """outpaint, serial remix and parallel remix on a CUDA pipeline: every
+    call's generator and noise live on the card, every denoise step goes
+    through both kernels, and the parallel remix is one call of one row per
+    window."""
+    _cuda()
+    from audio_diffusion_torch.pipelines import stitch
+    from audio_diffusion_torch.pipelines.pipeline import AudioDiffusionPipeline
+
+    n_res, n_attn = _tiny_saved_pipeline(str(tmp_path))
+    pipe = AudioDiffusionPipeline.from_pretrained(str(tmp_path), fused_groupnorm=True, device="cuda")
+    calls = []
+
+    class OnTheCard:
+        mel, sample_hw, unet, device = pipe.mel, pipe.sample_hw, pipe.unet, pipe.device
+
+        def __call__(self, **kw):
+            for name in ("generator", "step_generator", "noise"):
+                if kw.get(name) is not None:
+                    assert kw[name].device.type == "cuda", name
+            calls.append(np.asarray(kw["raw_audio"]).shape)
+            return pipe(**kw)
+
+    track = torch.randn(3 * 16 * 512, generator=torch.Generator().manual_seed(3)).numpy() * 0.3
+    n_windows = len(track) // (16 * 512 - int(0.1 * 22050))
+    # (run, calls, denoise steps per call): outpaint from noise, the remixes from start_step 1 of 2
+    for run, n_calls, steps in ((lambda: stitch.outpaint(OnTheCard(), track[:9000], 2, overlap_secs=0.1, steps=2),
+                                 2, 2),
+                                (lambda: stitch.remix(OnTheCard(), track, start_step=1, overlap_secs=0.1, steps=2),
+                                 n_windows, 1),
+                                (lambda: stitch.remix(OnTheCard(), track, start_step=1, overlap_secs=0.1, steps=2,
+                                                      parallel=True), 1, 1)):
+        calls.clear()
+        before = (gn.group_norm_silu.launches, at.flash_mha.launches)
+        out = run()
+        torch.cuda.synchronize()
+        assert len(calls) == n_calls and np.isfinite(out).all()
+        assert (gn.group_norm_silu.launches - before[0], at.flash_mha.launches - before[1]) == \
+            (2 * n_res * steps * n_calls, n_attn * steps * n_calls)
+    assert calls == [(n_windows, 16 * 512)]

@@ -1,12 +1,16 @@
 """Port parity of the mel DSP (audio_diffusion_torch.ops.*, .mel) against the
 JAX package on the CPU: identical filterbank, bit-equal uint8 <-> dB, and
-STFT/ISTFT/NNLS/Griffin-Lim agreement with the initial phase handed to both."""
+STFT/ISTFT/NNLS/Griffin-Lim agreement with the initial phase handed to both,
+and the frozen mel goldens of tests/test_mel.py at their limits."""
+
+import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from conftest import synth_audio
 
 from audio_diffusion_torch.mel import Mel
 from audio_diffusion_torch.ops import griffin_lim as tgl
@@ -154,3 +158,50 @@ def test_audio_io_matches_jax(tmp_path):
         assert audio_io.wav_bytes(a, 22050) == jax_wav_bytes(a, 22050)
     with pytest.raises(ValueError, match="mono=False"):
         audio_io.load_audio(str(tmp_path / "x.mp3"), mono=False)
+
+
+# ------------------------------------------------------------ frozen goldens
+# The port's Mel held to tests/goldens/mel_goldens.npz at the limits of
+# tests/test_mel.py's gates: the uint8 quantizer may flip a pixel by 1 at bin
+# boundaries (max |diff| <= 1, mean < 0.02); the round-trip MAE within 1.1
+# uint8 of the frozen value.
+
+GOLDENS = os.path.join(os.path.dirname(__file__), "goldens", "mel_goldens.npz")
+# (x_res = y_res, hop, synth_audio seed, golden image, golden round-trip MAE)
+GOLDEN_CASES = {"256": (256, 512, 0, "image_256", "roundtrip_mae_256"),
+                "64": (64, 1024, 4, "image_64", "roundtrip_mae_64")}
+
+
+def _golden_input(res, hop, seed):
+    mel = Mel(x_res=res, y_res=res, hop_length=hop, device="cpu")
+    audio = synth_audio(mel.slice_size, seed=seed)
+    return mel, mel.spectrogram_images_from_audio(audio[None])[0].numpy()
+
+
+@pytest.mark.parametrize("case", list(GOLDEN_CASES))
+def test_mel_forward_matches_frozen_golden(case):
+    res, hop, seed, image_key, _ = GOLDEN_CASES[case]
+    _, img = _golden_input(res, hop, seed)
+    diff = np.abs(img.astype(int) - np.load(GOLDENS)[image_key].astype(int))
+    assert diff.max() <= 1 and diff.mean() < 0.02, (diff.max(), diff.mean())
+
+
+@pytest.mark.parametrize("case", list(GOLDEN_CASES))
+def test_mel_roundtrip_mae_tight_gate(case):
+    """Griffin-Lim from the port's own seed-0 phase, re-spectrogrammed."""
+    res, hop, seed, _, mae_key = GOLDEN_CASES[case]
+    mel, img = _golden_input(res, hop, seed)
+    rec = mel.images_to_audio(img[None])[0]
+    img2 = mel.spectrogram_images_from_audio(torch.nn.functional.pad(rec, (0, mel.slice_size - rec.shape[0]))[None])
+    mae = np.abs(img.astype(float) - img2[0].numpy().astype(float)).mean()
+    assert mae < float(np.load(GOLDENS)[mae_key]) + 1.1, mae
+
+
+def test_griffin_lim_audio_matches_frozen_golden_loosely():
+    """The waveform head against the frozen capture, from the JAX Mel's
+    default initial phase (key 0, griffin_lim.py:121) handed to the port."""
+    mel, img = _golden_input(256, 512, 0)
+    phase = np.asarray(2.0 * jnp.pi * jax.random.uniform(jax.random.key(0), (1, mel.x_res, mel.n_fft // 2 + 1)))
+    rec = mel.images_to_audio(img[None], phase=torch.from_numpy(phase))[0].numpy()[:4096]
+    c = np.corrcoef(rec, np.load(GOLDENS)["rec_head_256"])[0, 1]
+    assert c > 0.99, c

@@ -307,7 +307,12 @@ def test_port_imports_no_jax():
             "audio_diffusion_torch.serving.__main__, audio_diffusion_torch.training, "
             "audio_diffusion_torch.training.__main__, audio_diffusion_torch.training.train_vae, "
             "audio_diffusion_torch.training.perceptual, audio_diffusion_torch.data.dataset, "
-            "audio_diffusion_torch.models.ema; "
+            "audio_diffusion_torch.models.ema, audio_diffusion_torch.audio_diffusion, audio_diffusion_torch.apps, "
+            "audio_diffusion_torch.pipelines.stitch, audio_diffusion_torch.ops.beat, audio_diffusion_torch.utils.hub, "
+            "audio_diffusion_torch.utils.ldm_import, audio_diffusion_torch.utils.profiling, "
+            "audio_diffusion_torch.data.native_audio, audio_diffusion_torch.data.prepare, "
+            "audio_diffusion_torch.scripts.audio_to_images, audio_diffusion_torch.scripts.encode_audio, "
+            "audio_diffusion_torch.scripts.convert_checkpoint; "
             "bad = [m for m in ('jax', 'flax', 'optax', 'audio_diffusion_tpu') if m in sys.modules]; "
             "assert not bad, bad")
     env = {**os.environ, "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH", "")}
