@@ -12,7 +12,8 @@ kernel rebuilds it, and lives in ``audio_diffusion_torch/_build/`` (listed in
 ``.gitignore``). Each C entry point launches on the stream it is given and
 returns ``cudaGetLastError()``; :func:`check` turns a non-zero code into an
 exception. Kernel attributes (shared memory above 48 KB, clusters of more
-than 8 CTAs) are set once when the library loads, never inside a launch.
+than 8 CTAs) are set once per card (CUDA keeps them per device), before the
+first launch there (:meth:`KernelLibrary.on`), never inside a launch.
 Nothing here runs at import time.
 """
 
@@ -99,8 +100,18 @@ class KernelLibrary:
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
             setattr(self, name, fn)
-        check(self.adt_group_norm_silu_init(), "adt_group_norm_silu_init")
-        check(self.adt_mha_init(), "adt_mha_init")
+        self.devices = set()  # the cards whose kernel attributes are set
+
+    def on(self, device: int) -> "KernelLibrary":
+        """The library, with the kernels' attributes set on card ``device``."""
+        if device not in self.devices:
+            import torch
+
+            with torch.cuda.device(device):
+                check(self.adt_group_norm_silu_init(), "adt_group_norm_silu_init")
+                check(self.adt_mha_init(), "adt_mha_init")
+            self.devices.add(device)
+        return self
 
 
 def _run(cmds: list) -> str:

@@ -191,7 +191,7 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor
     qp, kp, vp = q.data_ptr(), k.data_ptr(), v.data_ptr()
     vec = int((qp | kp | vp) % 16 == 0 and (st[0] % plan.pack, st[1] % plan.pack, st[2] % plan.pack) == (0, 0, 0))
     _ARGS[:] = (qp, kp, vp, o.data_ptr(), b * h, h, st[0], st[1], st[2], vec)
-    code = _build.load().adt_mha_fwd(_ARGS_ADDRESS, plan.c_address,
+    code = _build.load().on(dev).adt_mha_fwd(_ARGS_ADDRESS, plan.c_address,
                                      torch._C._cuda_getCurrentRawStream(dev))  # current stream, no Stream object
     if code:
         _build.check(code, f"flash_mha ({plan.route} route)")

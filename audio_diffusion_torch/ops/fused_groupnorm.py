@@ -161,7 +161,7 @@ def group_norm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     y = torch.empty_like(x)
     ptr = x.data_ptr()
     vec = int(ptr % 16 == 0 and plan.slab % plan.pack == 0)  # y is a fresh, aligned allocation
-    code = _build.load().adt_group_norm_silu(
+    code = _build.load().on(dev).adt_group_norm_silu(
         ptr, scale.data_ptr(), bias.data_ptr(), y.data_ptr(), b * groups, eps, vec, plan.c_address,
         torch._C._cuda_getCurrentRawStream(dev))  # the handle of torch.cuda.current_stream(), without a Stream object
     if code:

@@ -12,6 +12,14 @@ eagerly on one device, in the same order:
 There is no CPU fallback: the pipeline runs on the device it is given, and on
 a CUDA device every kernel wrapper launches its kernel or raises.
 
+:meth:`AudioDiffusionPipeline.shard` splits inference over a mesh's data
+axis (the JAX ``shard``, pipeline.py:112-124): one replica per device, every
+batch-level random draw made on the pipeline's own device in the unsharded
+order, then contiguous rows per replica through the draw-injection
+arguments, and the rows gathered back in order. The result is the unsharded
+call's wherever a row does not depend on its batch (the CPU; on the card,
+with cuDNN off, as the server runs batches).
+
 The per-step mask overwrite uses the noise level of the *current* timestep
 ``t`` although the sample was just stepped to ``t_prev``: the reference's
 off-by-one, kept for parity (pipeline.py:23-26).
@@ -19,7 +27,9 @@ off-by-one, kept for parity (pipeline.py:23-26).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import math
 import os
 from typing import List, Optional, Sequence, Union
 
@@ -82,6 +92,40 @@ class AudioDiffusionPipeline:
         self.vqvae = vqvae.to(self.device).eval() if vqvae is not None else None
         self.mel = mel
         self.scheduler = scheduler
+        self.mesh = None
+        self._replicas = None
+
+    def shard(self, mesh) -> "AudioDiffusionPipeline":
+        """Split inference over ``mesh``'s ``data`` axis (``parallel.make_mesh``):
+        one replica of the UNet, VAE and Mel per device on the axis, the first
+        being this pipeline's device; a device that repeats holds one replica
+        (a one-card or CPU split runs its shares in turn). Every call's batch
+        must then be a multiple of the data-axis size. A ``model`` axis has no
+        counterpart here (the UNet is not split), so it must be 1."""
+        from ..parallel.mesh import rank_device
+
+        if dict(mesh.shape).get("model", 1) != 1:
+            raise ValueError(f"mesh {dict(mesh.shape)}: the port splits inference along 'data' only; "
+                             "build the mesh with num_model=1")
+        devices = list(mesh.devices[:, 0])
+        if devices[0] != rank_device(str(self.device)):
+            raise ValueError(f"the mesh's first device {devices[0]} must be the pipeline's own ({self.device})")
+        replicas = {devices[0]: self}
+        for d in devices[1:]:
+            if d not in replicas:
+                replicas[d] = self._replica(d)
+        self.mesh, self._replicas = mesh, [replicas[d] for d in devices]
+        return self
+
+    def _replica(self, device: torch.device) -> "AudioDiffusionPipeline":
+        def copy(module):
+            twin = type(module)(module.config)
+            twin.load_state_dict(module.state_dict(), strict=True)
+            return twin
+
+        return AudioDiffusionPipeline(copy(self.unet), Mel.from_config(self.mel.config.config_dict(), device=device),
+                                      self.scheduler, copy(self.vqvae) if self.vqvae is not None else None,
+                                      device=device)
 
     def get_default_steps(self) -> int:
         """50 for DDIM, num_train_timesteps for DDPM."""
@@ -217,6 +261,17 @@ class AudioDiffusionPipeline:
                 posterior sample; ``step_noise`` (denoise steps, B, H, W, C) the
                 variance noise: test hooks that hand both packages one draw.
         """
+        return (self._call_sharded if self._replicas is not None else self._call_one)(
+            batch_size=batch_size, audio_file=audio_file, raw_audio=raw_audio, slice=slice,
+            start_step=start_step, steps=steps, generator=generator, mask_start_secs=mask_start_secs,
+            mask_end_secs=mask_end_secs, step_generator=step_generator, eta=eta, noise=noise, encoding=encoding,
+            return_dict=return_dict, return_images_only=return_images_only, return_arrays=return_arrays,
+            pcm16=pcm16, gl_phase=gl_phase, posterior_eps=posterior_eps, step_noise=step_noise)
+
+    def _call_one(self, *, batch_size, audio_file, raw_audio, slice, start_step, steps, generator, mask_start_secs,
+                  mask_end_secs, step_generator, eta, noise, encoding, return_dict, return_images_only, return_arrays,
+                  pcm16, gl_phase, posterior_eps, step_noise):
+        """``__call__`` on this pipeline's device alone."""
         steps = steps or self.get_default_steps()
         if start_step >= steps:
             raise ValueError(
@@ -286,6 +341,9 @@ class AudioDiffusionPipeline:
         audio = self.mel.images_to_audio(raw, generator=generator, phase=gl_phase)
         if pcm16:
             audio = pcm16_quantize(audio)
+        return self._output(raw, audio, return_dict, return_arrays)
+
+    def _output(self, raw: torch.Tensor, audio: torch.Tensor, return_dict: bool, return_arrays: bool):
         if return_arrays:
             return raw, audio
         raw_np = raw.cpu().numpy()
@@ -294,6 +352,70 @@ class AudioDiffusionPipeline:
         if not return_dict:
             return pil_images, (self.mel.get_sample_rate(), audios)
         return PipelineOutput(pil_images, self.mel.get_sample_rate(), audios, raw_np)
+
+    def _call_sharded(self, *, batch_size, audio_file, raw_audio, slice, start_step, steps, generator,
+                      step_generator, eta, noise, encoding, return_dict, return_images_only, return_arrays, pcm16,
+                      gl_phase, posterior_eps, step_noise, **rest):
+        """``__call__`` over the replicas of :meth:`shard`. The draws the
+        unsharded call makes from ``generator`` are made here first, on this
+        device and in its order (noise, the posterior eps of one broadcast
+        clip, the step noises, the Griffin-Lim phase), per-row step generators
+        draw their rows' chains; then each replica takes its contiguous rows
+        of them and of the per-row inputs, draws nothing, and the rows come
+        back in order onto this device."""
+        steps = steps or self.get_default_steps()
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        h, w = self.sample_hw
+        in_ch = self.unet.config.in_channels
+        if noise is None:
+            noise = torch.randn((batch_size, h, w, in_ch), generator=generator, device=generator.device)
+        noise = torch.as_tensor(noise, dtype=torch.float32).to(self.device)
+        if noise.shape[-1] != in_ch and noise.shape[1] == in_ch:
+            noise = noise.permute(0, 2, 3, 1)
+        rows, n = noise.shape[0], len(self._replicas)
+        if rows % n:
+            raise ValueError(f"the batch ({rows}) must be a multiple of the mesh's data-axis size ({n}): "
+                             "a sharded batch splits along 'data'")
+        enc = self._validate_encoding(encoding, rows)
+        if isinstance(step_generator, (list, tuple)) and len(step_generator) != rows:
+            raise ValueError(f"per-row step_generator batch ({len(step_generator)}) must equal the "
+                             f"generation batch ({rows}).")
+        batched = raw_audio is not None and np.asarray(raw_audio).ndim == 2
+        if batched and len(raw_audio) != rows:
+            raise ValueError(f"raw_audio batch ({len(raw_audio)}) must equal the generation batch ({rows}); "
+                             "pass matching noise= or batch_size=.")
+        has_input = audio_file is not None or raw_audio is not None
+        if has_input and not batched and self.is_latent and posterior_eps is None:
+            lh, lw = self.vqvae.config.latent_hw(self.mel.y_res, self.mel.x_res)
+            posterior_eps = torch.randn((1, lh, lw, self.vqvae.config.latent_channels), generator=generator,
+                                        device=generator.device)
+        n_steps = len(self.scheduler.schedule(steps).timesteps[start_step:])
+        if (not isinstance(self.scheduler, DDIMScheduler) or eta > 0) and step_noise is None:
+            step_noise = torch.stack(list(step_noises(tuple(noise.shape), n_steps, self.device,
+                                                      step_generator if step_generator is not None else generator)))
+        if not return_images_only and gl_phase is None:
+            gl_phase = 2.0 * math.pi * torch.rand((rows, self.mel.x_res, self.mel.n_fft // 2 + 1),
+                                                  generator=generator, device=generator.device)
+
+        def split(x, dim=0):  # n contiguous row blocks, or n times x for what every replica shares
+            return x.split(rows // n, dim) if isinstance(x, torch.Tensor) else [x] * n
+
+        per_replica = zip(self._replicas, split(noise), split(enc), split(step_noise, 1), split(gl_phase),
+                          np.split(np.asarray(raw_audio), n) if batched else [raw_audio] * n)
+        parts = []
+        for rep, x, e, sn, ph, ra in per_replica:
+            with torch.cuda.device(rep.device) if rep.device.type == "cuda" else contextlib.nullcontext():
+                parts.append(rep._call_one(
+                    batch_size=None, generator=None, step_generator=None, noise=x, encoding=e, step_noise=sn,
+                    gl_phase=ph, raw_audio=ra, audio_file=audio_file, slice=slice, start_step=start_step,
+                    steps=steps, eta=eta, posterior_eps=posterior_eps, return_images_only=return_images_only,
+                    return_arrays=True, return_dict=True, pcm16=pcm16, **rest))
+        if return_images_only:
+            return np.concatenate(parts)
+        raw = torch.cat([p[0].to(self.device) for p in parts])
+        audio = torch.cat([p[1].to(self.device) for p in parts])
+        return self._output(raw, audio, return_dict, return_arrays)
 
     # --------------------------------------------------------------- inversion
     @torch.inference_mode()

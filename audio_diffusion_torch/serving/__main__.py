@@ -43,6 +43,9 @@ def parse_args(argv=None):
                    help="route the UNet's GroupNorm+SiLU through the CUDA kernel (the saved config does not "
                         "carry this)")
     p.add_argument("--device", type=str, default="cuda", help="torch device to serve on")
+    p.add_argument("--mesh_data", type=int, default=None,
+                   help="shard serving over N devices (the first N cards; batches split along 'data'; tiers become "
+                        "multiples of N)")
     p.add_argument("--warmup", action=argparse.BooleanOptionalAction, default=True,
                    help="run every batch tier once before accepting traffic")
     p.add_argument("--max_queue", type=int, default=None,
@@ -60,7 +63,8 @@ def main(argv=None):
     from audio_diffusion_torch.serving import make_server
 
     server = make_server(
-        a.model, dtype=a.dtype, fused_groupnorm=a.fused_groupnorm, device=a.device, host=a.host, port=a.port,
+        a.model, dtype=a.dtype, fused_groupnorm=a.fused_groupnorm, device=a.device, mesh_data=a.mesh_data,
+        host=a.host, port=a.port,
         max_batch=a.max_batch, max_wait_ms=a.max_wait_ms, steps=a.steps, eta=a.eta,
         batch_policy=a.batch_policy, allowed_steps=a.allow_steps, allowed_etas=a.allow_etas,
         allowed_start_steps=a.allow_start_steps, max_queue=a.max_queue, max_group_queue=a.max_group_queue,

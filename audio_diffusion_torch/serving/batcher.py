@@ -1,7 +1,8 @@
 """Dynamic request batching over the pipeline (port of ``audio_diffusion_tpu/serving/batcher.py``).
 
-* **Batch tiers.** Requests pad up to a fixed tier (1, 2, 4, ... ``max_batch``),
-  so the device only ever sees ``len(tiers)`` batch shapes, each warmed at
+* **Batch tiers.** Requests pad up to a fixed tier (1, 2, 4, ... ``max_batch``;
+  for a sharded pipeline, ``pipe.shard(mesh)``, multiples of the mesh's
+  data-axis size), so the device only ever sees ``len(tiers)`` batch shapes, each warmed at
   startup by :meth:`DynamicBatcher.warmup` (kernel libraries, cuDNN
   algorithm choice, the caching allocator). The default "snap" policy
   dispatches the largest tier <= queue depth and leaves the rest queued, so
@@ -115,7 +116,8 @@ class DynamicBatcher:
 
     Args:
         pipe: an ``AudioDiffusionPipeline`` (or a compatible callable object).
-        max_batch: largest batch tier; tiers are the powers of two up to it.
+        max_batch: largest batch tier; tiers are the powers of two up to it
+            (times the data-axis size of a sharded pipeline).
         max_wait_ms: how long the worker holds the FIRST request of a batch
             open for companions.
         steps / eta: settings shared by all requests unless a request
@@ -148,7 +150,14 @@ class DynamicBatcher:
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         self.pipe = pipe
-        self.tiers = tuple(2**i for i in range(max_batch.bit_length()) if 2**i <= max_batch)
+        # A sharded pipeline splits every batch along 'data': each tier is a
+        # multiple of the data-axis size.
+        mesh = getattr(pipe, "mesh", None)
+        base = dict(mesh.shape).get("data", 1) if mesh is not None else 1
+        if max_batch % base != 0:
+            raise ValueError(f"max_batch ({max_batch}) must be a multiple of the mesh's data-axis size ({base}) — "
+                             "sharded batches split along 'data'.")
+        self.tiers = tuple(base * 2**i for i in range((max_batch // base).bit_length()) if base * 2**i <= max_batch)
         if self.tiers[-1] != max_batch:
             self.tiers = self.tiers + (max_batch,)
         if batch_policy not in ("snap", "pad"):

@@ -27,6 +27,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
 import numpy as np
+import torch
 
 from ..ops.audio_io import wav_bytes
 from .batcher import DynamicBatcher, QueueFull
@@ -193,15 +194,33 @@ def make_server(
     dtype: Optional[str] = None,
     fused_groupnorm: Optional[bool] = None,
     device: str = "cuda",
+    mesh_data: Optional[int] = None,
+    mesh_devices: Optional[list] = None,
     **kw,
 ) -> AudioDiffusionServer:
     """Load a pipeline directory in the diffusers layout
     (``AudioDiffusionPipeline.from_pretrained``) and wrap it in a server.
     ``dtype`` and ``fused_groupnorm`` override the loaded compute settings;
     ``fused_groupnorm=True`` routes the UNet's GroupNorm+SiLU through the
-    CUDA kernel."""
+    CUDA kernel.
+
+    ``mesh_data=N`` shards serving over N devices (``pipe.shard``): one
+    replica each, every batch split along the mesh's 'data' axis, tiers
+    multiples of N. The devices are the first N cards (on the CPU, N shares of
+    the one CPU device), or ``mesh_devices`` when given (a device may repeat)."""
+    from ..parallel.mesh import make_mesh
     from ..pipelines.pipeline import AudioDiffusionPipeline
 
     pipe = AudioDiffusionPipeline.from_pretrained(model_dir, dtype=dtype, fused_groupnorm=fused_groupnorm,
                                                   device=device)
+    if mesh_data is not None or mesh_devices is not None:
+        if mesh_devices is None:
+            if torch.device(device).type == "cuda":
+                if mesh_data > torch.cuda.device_count():
+                    raise ValueError(f"mesh_data={mesh_data} needs {mesh_data} cards, this machine has "
+                                     f"{torch.cuda.device_count()}")
+                mesh_devices = [f"cuda:{i}" for i in range(mesh_data)]
+            else:
+                mesh_devices = [device] * mesh_data
+        pipe.shard(make_mesh(num_data=mesh_data, devices=mesh_devices))
     return AudioDiffusionServer(pipe, **kw)

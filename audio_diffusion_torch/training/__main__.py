@@ -1,17 +1,25 @@
-"""Train a (latent/conditional) diffusion UNet on one device with the port:
+"""Train a (latent/conditional) diffusion UNet with the port, on one device or one process per card:
 
     python -m audio_diffusion_torch.training --dataset DIR --output_dir OUT [--vae VAE_DIR] [--device cpu]
+    torchrun --nproc_per_node N -m audio_diffusion_torch.training --dataset DIR ... [--param_sharding fsdp]
 
 The flags of the JAX package's ``scripts/train_unet.py`` plus ``--device``
 (default ``cuda``; without a card it raises unless ``--device cpu`` is
-given). ``--mesh_data``, ``--param_sharding fsdp`` and ``--push_to_hub true``
-raise: the port trains on one device and has no network path.
+given). Under ``torchrun`` each process joins the group (NCCL on the cards,
+gloo with ``--device cpu``) and trains on ``cuda:$LOCAL_RANK`` with its rows
+of every microbatch; ``--train_batch_size`` is the global microbatch and
+``--mesh_data``, when given, must equal the number of processes. Rank 0
+alone logs, saves and prints the result. ``--push_to_hub true`` raises: the
+port has no network path.
 """
 
 import argparse
 import logging
 import sys
 
+import torch.distributed as dist
+
+from ..parallel.mesh import init_distributed
 from .loop import RunConfig, run_training
 from .train_unet import TrainConfig
 
@@ -61,7 +69,8 @@ def parse_args(argv=None):
                    help="pickled {audio_file: encoding} for conditional training")
     p.add_argument("--mixed_precision", type=str, default="no", choices=["no", "bf16"])
     p.add_argument("--param_sharding", type=str, default="replicated", choices=["replicated", "fsdp"])
-    p.add_argument("--mesh_data", type=int, default=None, help="not supported: the port trains on one device")
+    p.add_argument("--mesh_data", type=int, default=None,
+                   help="the data axis: must equal the number of processes (torchrun --nproc_per_node)")
     p.add_argument("--max_steps", type=int, default=None)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--push_to_hub", type=_str2bool, default=False)
@@ -75,9 +84,6 @@ def parse_args(argv=None):
 def main(argv=None):
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
     a = parse_args(argv)
-    if a.mesh_data is not None or a.param_sharding != "replicated":
-        raise SystemExit("--mesh_data and --param_sharding fsdp are not supported: the port trains on one device "
-                         "(DDP/FSDP is not ported)")
     if a.push_to_hub:
         raise SystemExit("--push_to_hub: the port has no network path; copy --output_dir to a connected machine")
     run = RunConfig(
@@ -87,7 +93,8 @@ def main(argv=None):
         scheduler=a.scheduler, num_train_steps=a.num_train_steps,
         hop_length=a.hop_length, sample_rate=a.sample_rate, n_fft=a.n_fft,
         from_pretrained=a.from_pretrained, vae=a.vae, encodings=a.encodings, cache_latents=a.cache_latents,
-        mixed_precision=a.mixed_precision, seed=a.seed, max_steps=a.max_steps, device=a.device,
+        mixed_precision=a.mixed_precision, mesh_data=a.mesh_data, seed=a.seed, max_steps=a.max_steps,
+        device=a.device,
     )
     train = TrainConfig(
         learning_rate=a.learning_rate, lr_schedule=a.lr_scheduler, lr_warmup_steps=a.lr_warmup_steps,
@@ -95,10 +102,16 @@ def main(argv=None):
         adam_weight_decay=a.adam_weight_decay, adam_epsilon=a.adam_epsilon,
         gradient_accumulation_steps=a.gradient_accumulation_steps,
         use_ema=a.use_ema, ema_inv_gamma=a.ema_inv_gamma, ema_power=a.ema_power, ema_max_decay=a.ema_max_decay,
-        prediction_type=a.prediction_type,
+        prediction_type=a.prediction_type, param_sharding=a.param_sharding,
     )
-    result = run_training(run, train)
-    print(result)
+    rank = init_distributed(device=a.device)  # the torchrun environment, else one process
+    try:
+        result = run_training(run, train)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    if rank == 0:
+        print(result)
     return result
 
 

@@ -9,6 +9,12 @@ Restoring copies the saved tensors into the template state's own (so a
 UNet's parameters are updated in place) and resumes the data stream exactly
 (epoch shuffles derive from (seed, epoch), see ``data.dataset.epoch_rng``).
 The JAX package's orbax backend, a TPU-pod path, has no counterpart.
+
+Data parallel runs keep the file: whole tensors, whatever the world size, so
+a checkpoint moves between 1 and N ranks either way. Saving gathers every
+sharded tensor on every rank (a collective) and rank 0 alone writes;
+restoring reads the file on every rank after a barrier and keeps each
+rank's shard.
 """
 
 from __future__ import annotations
@@ -18,6 +24,9 @@ import shutil
 from typing import Optional
 
 import torch
+import torch.distributed as dist
+
+from ..parallel.mesh import gather_to_host, is_main_process, is_sharded, local
 
 _STATE_FILE = "state.pt"
 
@@ -80,14 +89,31 @@ def train_state_dict(state) -> dict:
 
 
 def save_train_state(manager: CheckpointManager, step: int, state) -> None:
-    manager.save(step, train_state_dict(state))
+    """Every rank calls this (sharded tensors are gathered); rank 0 writes."""
+    main = is_main_process()
+    tree = gather_to_host(train_state_dict(state), keep=main)
+    if main:
+        manager.save(step, tree)
+
+
+def _assign(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """Copy the whole tensor ``src`` into ``dst``, or into this rank's shard of it."""
+    if is_sharded(dst):
+        from torch.distributed.tensor import distribute_tensor
+
+        # every rank holds src: each keeps its own shard, no communication
+        src = distribute_tensor(src.to(dst.device), dst.device_mesh, dst.placements, src_data_rank=None)
+    local(dst).copy_(local(src))
 
 
 @torch.no_grad()
 def restore_train_state(manager: CheckpointManager, template, step: Optional[int] = None):
     """Copy checkpoint ``step`` (default the latest) into ``template``'s
     tensors in place and return it, or None when the directory holds none.
-    Raises when the saved keys or shapes differ from the template's."""
+    Raises when the saved keys or shapes differ from the template's. Under a
+    process group every rank calls it."""
+    if dist.is_available() and dist.is_initialized():
+        dist.barrier()  # rank 0's last save is on disk before anyone reads
     saved = manager.restore(step)
     if saved is None:
         return None
@@ -101,7 +127,7 @@ def restore_train_state(manager: CheckpointManager, template, step: Optional[int
         if dst.keys() != src.keys() or any(dst[k].shape != src[k].shape for k in dst):
             raise ValueError(f"checkpoint {manager.directory}/{saved['step']} does not fit this model's parameters")
         for k, t in dst.items():
-            t.copy_(src[k])
+            _assign(t, src[k])
     template.step = int(saved["step"])
     template.opt_state.count = int(saved["opt_state"]["count"])
     return template

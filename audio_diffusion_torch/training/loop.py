@@ -1,4 +1,4 @@
-"""End-to-end UNet training loop on one device (port of ``audio_diffusion_tpu/training/loop.py``).
+"""End-to-end UNet training loop, on one device or data parallel (port of ``audio_diffusion_tpu/training/loop.py``).
 
 Data, steps, logging, checkpoints and pipeline saves as the JAX loop runs
 them: the epoch loop over ``epoch_batches`` with (seed, epoch) shuffles, a
@@ -10,12 +10,24 @@ layout from the EMA parameters every ``save_model_epochs`` with a train-state
 checkpoint beside it, and eval samples into tensorboard every
 ``save_images_epochs`` when ``tensorboardX`` imports.
 
-What differs: one device (the JAX mesh has no counterpart, ``mesh_data`` is
-not a field); ``--vae`` and ``--from_pretrained`` read the diffusers layout
-through the port's loaders (a Hub id resolves from the local HF cache
-only); ``push_to_hub`` raises: the port has no network path. The UNet is
-built with ``fused_groupnorm=False`` as the JAX loop builds it: the
-GroupNorm+SiLU kernel has no backward.
+Data parallel. Under a process group (``parallel.init_distributed``; the CLI
+under ``torchrun``) every rank runs this loop: it reads the same global
+batches and keeps its rows of the microbatch axis, the UNet is wrapped by
+``train_unet.wrap_unet`` (DDP or FSDP by ``TrainConfig.param_sharding``),
+and the data axis is the world size. JAX auto-fits its mesh onto as many
+devices as divide ``train_batch_size``; torch runs one process per card, so
+a ``mesh_data`` other than the world size, or a ``train_batch_size`` the
+world size does not divide, raises. Logs and the tensorboard writer run on
+rank 0; the gathers before a save or a sample run on every rank, and only
+rank 0 writes and samples. ``should_sample`` is the same on every rank. The
+prefetch thread only copies to the device: no collective runs there.
+
+What differs besides: ``--vae`` and ``--from_pretrained`` read the diffusers
+layout through the port's loaders (a Hub id resolves from the local HF cache
+only); ``push_to_hub`` raises on every rank (the port has no network path;
+rank 0's failure is broadcast, so no rank hangs). The UNet is built with
+``fused_groupnorm=False`` as the JAX loop builds it: the GroupNorm+SiLU
+kernel has no backward.
 """
 
 from __future__ import annotations
@@ -28,16 +40,19 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.dataset import ImageSliceDataset, epoch_batches, epoch_rng, load_encodings, prefetch
 from ..mel import Mel
 from ..models.unet2d import UNet2D, conditional_config, unconditional_config
+from ..parallel.mesh import batch_slice, gather_to_host, rank_device, world
 from ..pipelines.pipeline import AudioDiffusionPipeline
 from ..schedulers import DDIMScheduler, DDPMScheduler, SchedulerConfig
 from ..utils import diffusers_io
 from ..utils.hub import ensure_repo, resolve_pretrained
 from .checkpoint import make_manager, restore_train_state, save_train_state
-from .train_unet import TrainConfig, init_train_state, make_lr_schedule, make_train_step, precompute_latent_moments
+from .train_unet import (TrainConfig, init_train_state, make_lr_schedule, make_train_step, precompute_latent_moments,
+                         wrap_unet)
 
 logger = logging.getLogger("audio_diffusion_torch.training")
 
@@ -61,11 +76,12 @@ class RunConfig:
     encodings: Optional[str] = None
     cache_latents: bool = True  # latent training: encode the dataset once, sample posteriors per step
     mixed_precision: str = "no"  # "no" | "bf16": the UNet computes in bf16, its parameters stay f32
+    mesh_data: Optional[int] = None  # the data axis: the process group's world size (None: whatever it is)
     seed: int = 0
     log_every: int = 10
     max_steps: Optional[int] = None  # early stop
     push_to_hub: bool = False  # raises: the port has no network path
-    device: str = "cuda"
+    device: str = "cuda"  # under a process group a bare "cuda" is the rank's card
     timing: bool = False  # result["timings"]: per step the host wall and data wait, on CUDA the device times
 
 
@@ -86,10 +102,46 @@ def _to_device(x, device):
     return None if x is None else torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
 
+def _check_push_to_hub(run: RunConfig, main: bool, grouped: bool) -> None:
+    """Rank 0 creates the Hub repo before any other work; its outcome reaches
+    every rank, so a failure stops them all (none is left at a collective)."""
+    err = None
+    if main:
+        try:
+            ensure_repo(None, run.output_dir)
+        except Exception as e:  # raised below, after the broadcast
+            err = e
+    if grouped:
+        ok = [err is None]
+        dist.broadcast_object_list(ok, src=0)
+        if not ok[0] and err is None:
+            raise RuntimeError("push_to_hub repo creation failed on process 0 — aborting this process too")
+    if err is not None:
+        raise err
+
+
+def _check_data_axis(run: RunConfig, world_size: int, grouped: bool) -> None:
+    if run.mesh_data is not None and run.mesh_data != world_size:
+        if not grouped:
+            raise ValueError(
+                f"mesh_data={run.mesh_data} needs that many processes, one per card: launch with "
+                f"`torchrun --nproc_per_node {run.mesh_data} -m audio_diffusion_torch.training ...` "
+                "(or join a group with parallel.init_distributed before run_training)")
+        raise ValueError(f"mesh_data={run.mesh_data} differs from the process group's world size {world_size}: "
+                         "the data axis is one rank per card")
+    if run.train_batch_size % world_size:
+        raise ValueError(f"train_batch_size={run.train_batch_size} (the global microbatch) does not split over "
+                         f"{world_size} ranks")
+
+
 def run_training(run: RunConfig, train: TrainConfig) -> dict:
+    """Train; under a process group every rank calls this with the same arguments."""
+    rank, world_size = world()
+    main, grouped = rank == 0, dist.is_available() and dist.is_initialized()
     if run.push_to_hub:
-        ensure_repo(None, run.output_dir)  # raises: the port has no network path
-    device = torch.device(run.device)
+        _check_push_to_hub(run, main, grouped)
+    _check_data_axis(run, world_size, grouped)
+    device = rank_device(run.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("run_training: CUDA device requested but torch.cuda is not available; "
                            "pass device='cpu' to train on the CPU")
@@ -125,6 +177,7 @@ def run_training(run: RunConfig, train: TrainConfig) -> dict:
             cfg = unconditional_config(sample_hw, channels, channels, dtype=dtype)
         unet = UNet2D(cfg).init_params(torch.Generator().manual_seed(run.seed))
     unet = unet.to(device).train()
+    model = wrap_unet(train, unet)
 
     sched_cfg = SchedulerConfig(num_train_timesteps=run.num_train_steps)
     scheduler = DDPMScheduler(sched_cfg) if run.scheduler == "ddpm" else DDIMScheduler(sched_cfg)
@@ -134,32 +187,35 @@ def run_training(run: RunConfig, train: TrainConfig) -> dict:
     train = dataclasses.replace(train, total_steps=max(steps_per_epoch * run.num_epochs, train.lr_warmup_steps + 1))
     lr_schedule = make_lr_schedule(train)
 
-    state = init_train_state(train, unet)
+    state = init_train_state(train, model)
     manager = make_manager(os.path.join(run.output_dir, "checkpoints"))
-    if restore_train_state(manager, state) is not None:
+    if restore_train_state(manager, state) is not None and main:
         logger.info("resumed from step %d", state.step)
     if run.max_steps and state.step >= run.max_steps:  # nothing to train (loop.py:231-241)
-        logger.info("restored step %d already >= max_steps %d; nothing to train", state.step, run.max_steps)
+        if main:
+            logger.info("restored step %d already >= max_steps %d; nothing to train", state.step, run.max_steps)
         return {"steps": state.step, "loss": float("nan"), "seconds": 0.0, "output_dir": run.output_dir,
-                "losses": []}
+                "losses": [], "rank": rank, "world_size": world_size, "saves": 0}
 
     precomputed = None
     if vae is not None and run.cache_latents:
         t_enc = time.time()
         precomputed = precompute_latent_moments(vae, dataset)
-        logger.info("cached latent moments for %d items in %.1f s (%s)",
-                    len(precomputed[1]), time.time() - t_enc, precomputed[0].shape)
+        if main:
+            logger.info("cached latent moments for %d items in %.1f s (%s)",
+                        len(precomputed[1]), time.time() - t_enc, precomputed[0].shape)
 
-    step_fn = make_train_step(train, unet, scheduler, vae, conditional, cached_latents=precomputed is not None,
+    step_fn = make_train_step(train, model, scheduler, vae, conditional, cached_latents=precomputed is not None,
                               record_events=run.timing)
 
     writer = None
-    try:
-        from tensorboardX import SummaryWriter
+    if main:  # rank-0 gating (reference: train_unet.py:199,286)
+        try:
+            from tensorboardX import SummaryWriter
 
-        writer = SummaryWriter(os.path.join(run.output_dir, "logs"))
-    except ImportError:
-        logger.warning("tensorboardX unavailable; metrics go to stdout only")
+            writer = SummaryWriter(os.path.join(run.output_dir, "logs"))
+        except ImportError:
+            logger.warning("tensorboardX unavailable; metrics go to stdout only")
 
     mel = Mel(x_res=resolution[1], y_res=resolution[0], hop_length=run.hop_length, sample_rate=run.sample_rate,
               n_fft=run.n_fft, device=device)
@@ -176,10 +232,12 @@ def run_training(run: RunConfig, train: TrainConfig) -> dict:
     start_epoch = global_step // max(steps_per_epoch, 1)
     resume_skip = global_step - start_epoch * steps_per_epoch
     done = False
+    saves = 0
+    rows = batch_slice(micro, rank, world_size)  # this rank's rows of every microbatch
 
     def place(batch):  # on the prefetch thread: the host-to-device copy overlaps the running step
         images, enc = batch
-        return _to_device(images, device), _to_device(enc, device)
+        return _to_device(images[:, rows], device), _to_device(None if enc is None else enc[:, rows], device)
 
     for epoch in range(start_epoch, run.num_epochs):
         batches = prefetch(epoch_batches(dataset, micro, accum, epoch_rng(run.seed, epoch), encodings,
@@ -206,7 +264,8 @@ def run_training(run: RunConfig, train: TrainConfig) -> dict:
                 if t_last_log is not None:
                     logs["steps_per_sec"] = round((global_step - steps_last_log) / (now - t_last_log), 3)
                 t_last_log, steps_last_log = now, global_step
-                logger.info("epoch %d step %d: %s", epoch, global_step, logs)
+                if main:
+                    logger.info("epoch %d step %d: %s", epoch, global_step, logs)
                 if writer:
                     for k, v in logs.items():
                         writer.add_scalar(k, v, global_step)
@@ -216,14 +275,22 @@ def run_training(run: RunConfig, train: TrainConfig) -> dict:
         batches.close()
 
         should_save = (epoch + 1) % run.save_model_epochs == 0 or epoch == run.num_epochs - 1 or done
-        should_sample = (epoch + 1) % run.save_images_epochs == 0 and writer is not None
+        # the same on every rank: the gather below is a collective they all enter
+        should_sample = (epoch + 1) % run.save_images_epochs == 0 and (writer is not None or world_size > 1)
+        eval_pipe = None
         if should_save or should_sample:
-            eval_unet = UNet2D(unet.config)
-            eval_unet.load_state_dict(state.ema_params if train.use_ema else state.params, strict=True)
-            eval_pipe = AudioDiffusionPipeline(eval_unet, mel, scheduler, vae, device=device)
+            eval_params = gather_to_host(state.ema_params if train.use_ema else state.params, keep=main)
+            if main:
+                eval_unet = UNet2D(unet.config)
+                eval_unet.load_state_dict(eval_params, strict=True)
+                eval_pipe = AudioDiffusionPipeline(eval_unet, mel, scheduler, vae, device=device)
+            del eval_params
         if should_save:
-            eval_pipe.save_pretrained(run.output_dir)
+            if main:
+                eval_pipe.save_pretrained(run.output_dir)
             save_train_state(manager, global_step, state)
+            saves += main
+        should_sample = should_sample and writer is not None
         if should_sample:
             enc_eval = None
             if conditional:
@@ -242,7 +309,7 @@ def run_training(run: RunConfig, train: TrainConfig) -> dict:
             except ImportError:  # tensorboardX add_audio needs soundfile
                 logger.warning("soundfile unavailable; skipping tensorboard audio logging")
         if should_save or should_sample:
-            del eval_pipe, eval_unet
+            del eval_pipe
             t_last_log = None  # the save/eval wall is not training: restart the throughput window
         if done:
             break
@@ -252,7 +319,7 @@ def run_training(run: RunConfig, train: TrainConfig) -> dict:
     result = {"steps": global_step,
               "loss": float(last_metrics["loss"]) if last_metrics is not None else float("nan"),
               "seconds": time.time() - t_start, "output_dir": run.output_dir,
-              "losses": [float(x) for x in losses]}
+              "losses": [float(x) for x in losses], "rank": rank, "world_size": world_size, "saves": saves}
     if run.timing:
         result["timings"] = {"step_ms": [1e3 * w for w in step_walls], "data_wait_ms": [1e3 * w for w in waits],
                              "fwd_bwd_ms": [a.elapsed_time(b) for a, b, _ in step_fn.events],

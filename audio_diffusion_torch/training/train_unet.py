@@ -1,4 +1,4 @@
-"""UNet diffusion training on one device (port of ``audio_diffusion_tpu/training/train_unet.py``).
+"""UNet diffusion training, on one device or data parallel (port of ``audio_diffusion_tpu/training/train_unet.py``).
 
 One optimization step is: per microbatch of the (accum, micro, H, W, C)
 batch, the DDPM loss (MSE against epsilon or the velocity) and its
@@ -11,9 +11,26 @@ bias-corrected Adam update and scales by ``-lr(count)`` with the count taken
 before its increment (the first update under warmup uses lr 0).
 
 Hyperparameter defaults mirror the JAX package's (its docstring lists their
-sources in the reference trainer). The JAX package's mesh functions
-(``shard_train_state``, ``batch_shardings``) have no counterpart: this
-trainer runs on one device, and ``param_sharding="fsdp"`` raises.
+sources in the reference trainer).
+
+Data parallelism. The JAX step is one SPMD program over a mesh; here one
+process runs per card and :func:`wrap_unet` (the counterpart of
+``shard_train_state``) wraps the UNet over the default process group:
+``param_sharding="replicated"`` in ``DistributedDataParallel``, ``"fsdp"`` in
+FSDP2's ``fully_shard`` on each resnet, attention and resampler and on the
+root, every parameter split on the axis :func:`..parallel.fsdp_sharding_for`
+picks. FSDP2 cannot keep a parameter whole inside a group, so the ones the
+JAX rule leaves replicated (small, or no divisible axis) split on dim 0: the
+values are the same, only where they live differs. A wrapped step takes this
+rank's rows of the microbatch axis (``batch_shardings``' counterpart is
+:func:`..parallel.batch_slice`); gradients are averaged over ranks by the
+wrapper (DDP's all-reduce, FSDP's reduce-scatter) once per optimizer step,
+the microbatches before the last running without that sync; the optimizer
+and the EMA update each rank's own shards; the loss is all-reduced to the
+global mean, bitwise the same on every rank. Without a process group
+:func:`wrap_unet` returns the UNet and both settings are the one-device step.
+No mixed-precision policy is given to FSDP: the UNet casts to bf16 inside, as
+the JAX step does, and gradients reduce in f32.
 
 Random draws. torch cannot reproduce ``jax.random``, so a step takes its
 draws injected (``timesteps``, ``noise``, ``posterior_eps``, each with the
@@ -22,19 +39,26 @@ draws them from :func:`step_generator` ``(seed, step)``, the counterpart of
 ``fold_in(key(seed), step)``: a resumed run draws what the straight run drew.
 Per microbatch, in order: the timesteps (micro,), then on the latent paths
 the posterior's standard normal eps, then the noise, both of the latents'
-shape.
+shape. Draws are always of the whole microbatch: a data-parallel rank draws
+every row, in the same order as one device, and keeps its own, so the DP step
+is the one-device step.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.fsdp import FSDPModule
+from torch.nn.parallel import DistributedDataParallel
 
 from ..models.ema import EMA
 from ..models.vae import DiagonalGaussian
+from ..parallel.mesh import batch_slice, fsdp_sharding_for, is_sharded, local, world
 from ..pipelines.pipeline import LATENT_SCALE
 
 
@@ -54,7 +78,7 @@ class TrainConfig:
     ema_inv_gamma: float = 1.0
     ema_power: float = 0.75
     ema_max_decay: float = 0.9999
-    param_sharding: str = "replicated"  # one device: only "replicated"
+    param_sharding: str = "replicated"  # "replicated" (DDP) or "fsdp" (FSDP2), over the default process group
     prediction_type: str = "epsilon"  # "epsilon" (reference default) | "v_prediction"
 
 
@@ -110,9 +134,16 @@ class AdamState:
     nu: Dict[str, torch.Tensor]
 
 
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element (``optax.global_norm``), a 0-dim tensor."""
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(tensors))))
+def global_norm(tensors: Sequence[torch.Tensor], sharded: bool = False) -> torch.Tensor:
+    """sqrt of the sum of squares of every element (``optax.global_norm``), a
+    0-dim tensor. ``sharded``: the tensors are this rank's FSDP shards, and the
+    squares are summed over the ranks (an all-reduce every rank enters)."""
+    norms = torch.stack(torch._foreach_norm(list(tensors)))
+    if not sharded:
+        return torch.linalg.vector_norm(norms)
+    sq = norms.square().sum()
+    dist.all_reduce(sq)
+    return sq.sqrt()
 
 
 class Adam:
@@ -128,20 +159,24 @@ class Adam:
         self.weight_decay, self.max_grad_norm = weight_decay, max_grad_norm
 
     def init(self, params: Dict[str, torch.Tensor]) -> AdamState:
-        return AdamState(0, {k: torch.zeros_like(p, memory_format=torch.contiguous_format) for k, p in params.items()},
-                         {k: torch.zeros_like(p, memory_format=torch.contiguous_format) for k, p in params.items()})
+        """Zero moments placed like the parameters (an FSDP parameter's are sharded alike)."""
+        def zeros(p):
+            return torch.zeros_like(p) if is_sharded(p) else torch.zeros_like(p, memory_format=torch.contiguous_format)
+
+        return AdamState(0, {k: zeros(p) for k, p in params.items()}, {k: zeros(p) for k, p in params.items()})
 
     @torch.no_grad()
     def step(self, params: List[torch.Tensor], grads: List[torch.Tensor], state: AdamState,
              grad_norm: Optional[torch.Tensor] = None) -> None:
         """One update of ``params`` from ``grads`` (modified in place), in
-        ``state``'s key order. ``grad_norm``, when given, is ``global_norm(grads)``."""
+        ``state``'s key order. ``grad_norm``, when given, is ``global_norm(grads)``.
+        With FSDP every list holds this rank's shards: the update is elementwise."""
         if self.max_grad_norm is not None:
             norm = float(global_norm(grads) if grad_norm is None else grad_norm)
             if not norm < self.max_grad_norm:  # optax: select(norm < max, g, (g / norm) * max)
                 torch._foreach_div_(grads, norm)
                 torch._foreach_mul_(grads, self.max_grad_norm)
-        mu, nu = list(state.mu.values()), list(state.nu.values())
+        mu, nu = [local(t) for t in state.mu.values()], [local(t) for t in state.nu.values()]
         b1, b2 = self.b1, self.b2
         torch._foreach_mul_(mu, b1)
         torch._foreach_add_(mu, torch._foreach_mul(grads, 1.0 - b1))
@@ -175,7 +210,8 @@ def make_optimizer(cfg: TrainConfig) -> Adam:
 @dataclasses.dataclass
 class TrainState:
     """step counts optimizer steps; params are the UNet's own parameters
-    (updated in place); ema_params a params-keyed copy, or None without EMA."""
+    (updated in place; DTensors under FSDP); ema_params a params-keyed copy
+    placed alike, or None without EMA."""
 
     step: int
     params: Dict[str, torch.nn.Parameter]
@@ -183,8 +219,50 @@ class TrainState:
     ema_params: Optional[Dict[str, torch.Tensor]]
 
 
+def unwrap(model: torch.nn.Module) -> torch.nn.Module:
+    """The UNet inside what :func:`wrap_unet` made (FSDP2 keeps the module itself)."""
+    return model.module if isinstance(model, DistributedDataParallel) else model
+
+
+def _fsdp_units(unet) -> list:
+    """The modules the UNet calls (its blocks are containers with no forward of their own)."""
+    return [m for blk in (*unet.down_blocks, unet.mid_block, *unet.up_blocks)
+            for name in ("resnets", "attentions", "downsamplers", "upsamplers") for m in getattr(blk, name, ())]
+
+
+def wrap_unet(cfg: TrainConfig, unet: torch.nn.Module) -> torch.nn.Module:
+    """The UNet made data parallel over the default process group (the
+    counterpart of ``shard_train_state``): ``DistributedDataParallel`` for
+    ``"replicated"``, FSDP2 for ``"fsdp"`` (module docstring). Call it on the
+    UNet in place on its device, before :func:`init_train_state`, which must
+    see the wrapped parameters. Without a process group the UNet comes back
+    as it is."""
+    if cfg.param_sharding not in ("replicated", "fsdp"):
+        raise ValueError(f"unknown param_sharding {cfg.param_sharding!r}")
+    if not (dist.is_available() and dist.is_initialized()):
+        return unet
+    device = next(unet.parameters()).device
+    if cfg.param_sharding == "replicated":
+        return DistributedDataParallel(unet, device_ids=[device] if device.type == "cuda" else None)
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.fsdp import fully_shard
+    from torch.distributed.tensor import Shard
+
+    world_size = dist.get_world_size()
+    mesh = init_device_mesh(device.type, (world_size,))
+
+    def placement(p):
+        axis = fsdp_sharding_for(p.shape, world_size)
+        return Shard(0 if axis is None else axis)
+
+    for m in _fsdp_units(unet):
+        fully_shard(m, mesh=mesh, shard_placement_fn=placement)
+    return fully_shard(unet, mesh=mesh, shard_placement_fn=placement)
+
+
 def init_train_state(cfg: TrainConfig, unet: torch.nn.Module) -> TrainState:
-    params = dict(unet.named_parameters())
+    """The state of ``unet`` or of what :func:`wrap_unet` made of it."""
+    params = dict(unwrap(unet).named_parameters())
     ema = {k: p.detach().clone() for k, p in params.items()} if cfg.use_ema else None
     return TrainState(0, params, make_optimizer(cfg).init(params), ema)
 
@@ -262,16 +340,27 @@ def make_train_step(cfg: TrainConfig, unet, scheduler, vae=None, conditional: bo
     (at the new step) as a float. Draws: the module docstring. With
     ``record_events`` on a CUDA device each call appends CUDA events (start,
     after the backward passes, after the optimizer and EMA) to ``step.events``.
+
+    ``unet`` may be what :func:`wrap_unet` made: then ``images`` and
+    ``encodings`` are this rank's rows of the microbatch axis, the injected
+    draws are the whole microbatch's (every rank is handed the same), and
+    ``loss`` is the global mean.
     """
-    if cfg.param_sharding != "replicated":
-        raise ValueError(f"param_sharding={cfg.param_sharding!r}: the port trains on one device; DDP/FSDP "
-                         "(the JAX package's parallel/mesh.py) is not ported")
     optimizer = make_optimizer(cfg)
     ema = EMA(cfg.ema_inv_gamma, cfg.ema_power, cfg.ema_max_decay)
     loss_fn = make_loss_fn(cfg, unet, scheduler, vae, conditional, cached_latents)
     num_train_timesteps = scheduler.config.num_train_timesteps
-    device = next(unet.parameters()).device
+    device = next(unwrap(unet).parameters()).device
     latent = cached_latents or vae is not None
+    ddp = isinstance(unet, DistributedDataParallel)
+    fsdp = isinstance(unet, FSDPModule)
+    rank, world_size = world() if (ddp or fsdp) else (0, 1)
+
+    def gradient_sync(last: bool):
+        """Average over ranks on the last microbatch only (accumulate locally before it)."""
+        if fsdp:
+            unet.set_requires_gradient_sync(last)
+        return unet.no_sync() if ddp and not last else contextlib.nullcontext()
 
     def latent_shape(images):
         if cached_latents:
@@ -286,12 +375,13 @@ def make_train_step(cfg: TrainConfig, unet, scheduler, vae=None, conditional: bo
         if encodings is not None:
             encodings = torch.as_tensor(encodings, dtype=torch.float32, device=device)
         accum, micro = images.shape[:2]
+        rows = batch_slice(micro * world_size, rank, world_size)  # this rank's rows of the global microbatch
         injected = [x is not None for x in (timesteps, noise, *((posterior_eps,) if latent else ()))]
         if any(injected) and not all(injected):
             raise ValueError("inject every draw the step needs (timesteps, noise"
                              + (", posterior_eps" if latent else "") + ") or none")
         gen = None if all(injected) else step_generator(seed, state.step, device)
-        shape = (micro, *latent_shape(images))
+        shape = (micro * world_size, *latent_shape(images))
         events = [torch.cuda.Event(enable_timing=True) for _ in range(3)] if (
             record_events and device.type == "cuda") else None
         if events:
@@ -303,14 +393,15 @@ def make_train_step(cfg: TrainConfig, unet, scheduler, vae=None, conditional: bo
         loss_sum = torch.zeros((), device=device)
         for i in range(accum):
             if gen is None:
-                t, eps, n = (torch.as_tensor(x[i], device=device) if x is not None else None
+                t, eps, n = (torch.as_tensor(x[i], device=device)[rows] if x is not None else None
                              for x in (timesteps, posterior_eps, noise))
             else:
-                t = torch.randint(0, num_train_timesteps, (micro,), generator=gen, device=device)
-                eps = torch.randn(shape, generator=gen, device=device) if latent else None
-                n = torch.randn(shape, generator=gen, device=device)
-            loss = loss_fn(images[i], None if encodings is None else encodings[i], t, n.float(), eps)
-            loss.backward()
+                t = torch.randint(0, num_train_timesteps, shape[:1], generator=gen, device=device)[rows]
+                eps = torch.randn(shape, generator=gen, device=device)[rows] if latent else None
+                n = torch.randn(shape, generator=gen, device=device)[rows]
+            with gradient_sync(i == accum - 1):
+                loss = loss_fn(images[i], None if encodings is None else encodings[i], t, n.float(), eps)
+                loss.backward()
             loss_sum = loss_sum + loss.detach()
         if events:
             events[1].record()
@@ -318,18 +409,23 @@ def make_train_step(cfg: TrainConfig, unet, scheduler, vae=None, conditional: bo
         missing = [k for k, g in zip(state.params, grads) if g is None]
         if missing:
             raise RuntimeError(f"no gradient reached {missing[:4]} ({len(missing)} parameters)")
-        if accum > 1:
+        params, grads = [local(p) for p in params], [local(g) for g in grads]
+        if accum > 1:  # the wrappers average over ranks; the microbatches are summed
             torch._foreach_div_(grads, float(accum))
-        grad_norm = global_norm(grads)
+        grad_norm = global_norm(grads, sharded=fsdp)
         optimizer.step(params, grads, state.opt_state, grad_norm)
         state.step += 1
         ema_decay = 0.0
         if cfg.use_ema:
-            ema_decay = ema.update(state.ema_params.values(), params, state.step)
+            ema_decay = ema.update([local(e) for e in state.ema_params.values()], params, state.step)
+        loss = loss_sum / accum
+        if ddp or fsdp:
+            dist.all_reduce(loss)
+            loss = loss / world_size
         if events:
             events[2].record()
             train_step.events.append(events)
-        return state, {"loss": loss_sum / accum, "ema_decay": ema_decay, "grad_norm": grad_norm}
+        return state, {"loss": loss, "ema_decay": ema_decay, "grad_norm": grad_norm}
 
     train_step.events = []
     return train_step

@@ -90,11 +90,28 @@ Phases, one line each (plus detail lines):
              ``make_train_step``: the mma route under autograd
  12. train-vae  the 256 LDM VAE with its PatchGAN, generator and
              discriminator steps alternating, the adversarial terms on from step 2
+ 13. dp      the [train] setup data parallel, one process per rank through
+             ``run_training`` (this script re-run with --dp-rank): with 2 or more
+             cards NCCL over min(count, 4) ranks, DDP and then FSDP; on one card
+             DDP over 2 ranks on cuda:0 with gloo, then DDP and FSDP at world 1
+             over NCCL. 6 steps, then resumed to 8: every rank's losses bitwise
+             the same, rank 0 alone saves, step 1 within 1e-3 of a one-process
+             run, 6 x accum flash_mha launches and FlashMHA backwards per step
+             on every rank; steps/s, the all-reduce of the gradient's bytes,
+             each rank's peak memory and device idle share
+ 14. shard   the [main] pipeline sharded over the cards (over [cuda:0, cuda:0]
+             on one card): batch 8 at 50 steps bitwise the unsharded call with
+             cuDNN off, the difference with it on; make_server over the mesh
+             answers 8 concurrent requests with tiers multiples of the data size
+ 15. encoder-train  the full-width AudioEncoder at batch 16 with train=True,
+             forward and backward: the running statistics move, encode is
+             untouched by .train()
 Then one JSON line with each kernel's launches (``launches``: the [main]
 requests; ``serve_launches``: the [serve] traffic; ``apps_launches``: the
 [apps] calls; ``cond_launches``: the
 [cond] requests; ``train_launches``: the [train] run's forwards and
-backwards), error and times, the card's
+backwards; ``dp_launches``: each [dp] rank's forwards and backwards;
+``shard_launches``: the [shard] calls and requests), error and times, the card's
 name and power limit as nvidia-smi prints them, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without a CUDA device it exits non-zero at once and prints no result.
@@ -157,6 +174,16 @@ PIXEL_BATCH, PIXEL_STEPS = 4, 3
 VAE_TRAIN_BATCH, VAE_TRAIN_STEPS, VAE_DISC_START = 4, 4, 2
 # The convenience layer on the latent-256 pipeline: 2 s overlaps (the stitch functions' default)
 APPS_OVERLAP_SECS, APPS_OUTPAINT_WINDOWS, APPS_REMIX_WINDOWS, APPS_REMIX_START = 2.0, 2, 3, 25
+# The dp group: the [train] setup data parallel, one process per rank
+DP_STEPS, DP_RESUME_TO = 6, 8
+DP_MAX_RANKS = 4
+DP_RANK_TIMEOUT_S = 600
+SHARD_BATCH = 8
+# Griffin-Lim from bitwise-equal spectrograms and phases, run at another batch
+# size: its batched matmuls and FFTs round differently, so the audio agrees to
+# this share of its peak, not bitwise (the serving contract is on spectrograms)
+SHARD_AUDIO_BOUND = 1e-2
+ENCODER_TRAIN_BATCH = 16
 
 
 def fail(msg: str) -> None:
@@ -222,10 +249,12 @@ def bf16_ulp(y):
 # ---------------------------------------------------------------------- phases
 
 def phase_build():
+    import torch
+
     from audio_diffusion_torch.ops import _build
 
     t0 = time.perf_counter()
-    lib = _build.load()
+    lib = _build.load().on(torch.cuda.current_device())
     wall = time.perf_counter() - t0
     print(f"[build] ok: nvcc {lib.build_seconds:.2f} s (load {wall:.2f} s) -> {lib.path.relative_to(REPO)}")
     entry = None
@@ -2144,7 +2173,343 @@ def phase_golden(card: str):
     print(f"[golden] ok: " + "; ".join(rows) + f"  [{card}]")
 
 
-PHASE_GROUPS = ("kernels", "main", "apps", "cond", "train")
+# ------------------------------------------------------------------ the dp group
+
+def _dp_unet_numel() -> int:
+    """The latent-256 UNet's parameter count (113.67 M), from a model on the meta device."""
+    import torch
+
+    from audio_diffusion_torch.models import UNet2D, unconditional_config
+
+    with torch.device("meta"):
+        return sum(p.numel() for p in UNet2D(unconditional_config((32, 32), 4, 4)).parameters())
+
+
+def dp_rank(rank: int, world: int, init: str, device: str, backend: str, shardings: list, root: Path,
+            tag: str) -> None:
+    """One rank of [dp] (this script re-run with --dp-rank): joins the group and, for each
+    sharding, trains the [train] setup DP_STEPS steps through run_training and resumes to
+    DP_RESUME_TO; then times an all-reduce of the gradient's bytes and profiles 2 steps.
+    Writes what it saw to ``root/<tag>_<rank>.json``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from audio_diffusion_torch.models import UNet2D, unconditional_config
+    from audio_diffusion_torch.ops import attention as at
+    from audio_diffusion_torch.ops import fused_groupnorm as gn
+    from audio_diffusion_torch.parallel import init_distributed
+    from audio_diffusion_torch.schedulers import DDPMScheduler
+    from audio_diffusion_torch.training import RunConfig, TrainConfig, run_training
+    from audio_diffusion_torch.training.train_unet import init_train_state, make_train_step, wrap_unet
+
+    init_distributed(init, world, rank, device=device, backend=backend, timeout_s=DP_RANK_TIMEOUT_S)
+    out = {"rank": rank, "world": world, "backend": backend, "device": device, "configs": {}}
+    try:
+        for sharding in shardings:
+            train = TrainConfig(learning_rate=TRAIN_LR, lr_warmup_steps=0, gradient_accumulation_steps=TRAIN_ACCUM,
+                                param_sharding=sharding)
+            at.flash_mha.launches = at.FlashMHA.backwards = gn.group_norm_silu.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            results = [run_training(RunConfig(
+                dataset=str(root / "slices"), output_dir=str(root / f"model_{tag}_{sharding}"),
+                train_batch_size=TRAIN_MICRO, vae=str(root / "vae"), mixed_precision="bf16", max_steps=max_steps,
+                save_images_epochs=1000, log_every=1, device=device, timing=True), train)
+                for max_steps in (DP_STEPS, DP_RESUME_TO)]
+            torch.cuda.synchronize()
+            launches = {"flash_mha": at.flash_mha.launches, "FlashMHA.backward": at.FlashMHA.backwards,
+                        "group_norm_silu": gn.group_norm_silu.launches}
+            tm = {k: results[0]["timings"][k][1:] + results[1]["timings"][k][1:] for k in results[0]["timings"]}
+
+            # 2 steps under the profiler (after 2 warm-up steps): this rank's device busy share
+            unet = UNet2D(unconditional_config((32, 32), dtype="bfloat16")).to(device).train()
+            model = wrap_unet(train, unet)
+            state = init_train_state(train, model)
+            step = make_train_step(train, model, DDPMScheduler(), cached_latents=True)
+            g = torch.Generator(device=device).manual_seed(3 + rank)
+            rows = TRAIN_MICRO // world
+            moments = torch.cat([torch.randn((TRAIN_ACCUM, rows, 32, 32, 1), generator=g, device=device),
+                                 torch.full((TRAIN_ACCUM, rows, 32, 32, 1), -2.0, device=device)], dim=-1)
+            for _ in range(2):
+                step(state, moments)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(2):
+                    step(state, moments)
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+            busy = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages())
+            del model, unet, state, step
+            out["configs"][sharding] = {
+                "losses": results[0]["losses"] + results[1]["losses"],
+                "steps": [r["steps"] for r in results], "saves": sum(r["saves"] for r in results),
+                "launches": launches, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "step_ms": float(np.mean(tm["step_ms"])), "fwd_bwd_ms": float(np.mean(tm["fwd_bwd_ms"])),
+                "optimizer_ema_ms": float(np.mean(tm["optimizer_ema_ms"])), "idle_pct": 100 - 100 * busy / wall_us}
+            torch.cuda.empty_cache()
+
+        # DDP's collective on this group: one all-reduce of the gradient's f32 bytes, host wall
+        buf = torch.zeros(_dp_unet_numel(), device=device)
+        for _ in range(2):
+            dist.all_reduce(buf)
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            dist.all_reduce(buf)
+        torch.cuda.synchronize()
+        out["allreduce_ms"] = (time.perf_counter() - t0) / 3 * 1e3
+        out["allreduce_mib"] = buf.numel() * 4 / 2**20
+    finally:
+        dist.destroy_process_group()
+    (root / f"{tag}_{rank}.json").write_text(json.dumps(out))
+
+
+def _dp_launch(root: Path, tag: str, world: int, backend: str, devices: list, shardings: tuple) -> list:
+    """Run ``world`` ranks of ``dp_rank`` as processes; returns their JSON reports."""
+    rendezvous = root / f"rendezvous_{tag}"
+    logs = [open(root / f"{tag}_{rank}.log", "w") for rank in range(world)]
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dp-rank", str(rank),
+                               "--dp-world", str(world), "--dp-init", f"file://{rendezvous}",
+                               "--dp-device", devices[rank], "--dp-backend", backend,
+                               "--dp-shardings", ",".join(shardings), "--dp-root", str(root), "--dp-tag", tag],
+                              stdout=log, stderr=subprocess.STDOUT) for rank, log in enumerate(logs)]
+    try:
+        deadline = time.monotonic() + DP_RANK_TIMEOUT_S
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        fail(f"[dp] {tag}: a rank did not finish within {DP_RANK_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    for rank, p in enumerate(procs):
+        if p.returncode != 0:
+            print((root / f"{tag}_{rank}.log").read_text()[-6000:], file=sys.stderr)
+            fail(f"[dp] {tag}: rank {rank} exited {p.returncode}")
+    return [json.loads((root / f"{tag}_{rank}.json").read_text()) for rank in range(world)]
+
+
+def phase_dp(card: str, root: Path) -> dict:
+    """Latent-256 UNet training at full width, data parallel: one process per
+    rank through ``run_training`` (module docstring, phase 13). Returns each
+    rank's kernel launches."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from audio_diffusion_torch.training import RunConfig, TrainConfig, run_training
+
+    n = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    write_training_data(root)
+    save_training_vae(root)
+    # the one-process run of step 1, the same step the ranks take first
+    ref = run_training(RunConfig(dataset=str(root / "slices"), output_dir=str(root / "model_ref"),
+                                 train_batch_size=TRAIN_MICRO, vae=str(root / "vae"), mixed_precision="bf16",
+                                 max_steps=1, save_images_epochs=1000, device="cuda"),
+                       TrainConfig(learning_rate=TRAIN_LR, lr_warmup_steps=0, gradient_accumulation_steps=TRAIN_ACCUM))
+    ref_loss = ref["losses"][0]
+    shutil.rmtree(root / "model_ref")
+    print(f"[dp] data, VAE and the one-process step 1 (loss {ref_loss:.6f}) in {time.perf_counter() - t0:.2f} s; "
+          f"{n} card(s)")
+    if n >= 2:
+        w = min(n, DP_MAX_RANKS)
+        plan = [("nccl", w, "nccl", [f"cuda:{i}" for i in range(w)], ("replicated", "fsdp"))]
+    else:  # NCCL refuses two ranks on one card; gloo carries DDP's all-reduce, not FSDP's collectives
+        plan = [("gloo", 2, "gloo", ["cuda:0", "cuda:0"], ("replicated",)),
+                ("nccl1", 1, "nccl", ["cuda:0"], ("replicated", "fsdp"))]
+    launches, peaks = {}, {}
+    want = {"flash_mha": TRAIN_ATTN * TRAIN_ACCUM * DP_RESUME_TO,
+            "FlashMHA.backward": TRAIN_ATTN * TRAIN_ACCUM * DP_RESUME_TO, "group_norm_silu": 0}
+    for tag, world, backend, devices, shardings in plan:
+        t0 = time.perf_counter()
+        reports = _dp_launch(root, tag, world, backend, devices, shardings)
+        wall = time.perf_counter() - t0
+        print(f"[dp] {tag}: backend {backend}, world {world}, devices {devices}; {wall:.2f} s for "
+              f"{'+'.join(shardings)}; all-reduce of the gradient ({reports[0]['allreduce_mib']:.1f} MiB f32, "
+              f"host wall) {reports[0]['allreduce_ms']:.4f} ms  [{card}]")
+        for sharding in shardings:
+            runs = [r["configs"][sharding] for r in reports]
+            first = runs[0]
+            if any(r["losses"] != first["losses"] for r in runs):
+                fail(f"[dp] {tag}/{sharding}: the ranks' losses differ: {[r['losses'] for r in runs]}")
+            if first["steps"] != [DP_STEPS, DP_RESUME_TO] or len(first["losses"]) != DP_RESUME_TO:
+                fail(f"[dp] {tag}/{sharding}: steps {first['steps']}, {len(first['losses'])} losses")
+            if not np.isfinite(first["losses"]).all():
+                fail(f"[dp] {tag}/{sharding}: non-finite losses {first['losses']}")
+            if not (runs[0]["saves"] == 2 and all(r["saves"] == 0 for r in runs[1:])):
+                fail(f"[dp] {tag}/{sharding}: saves per rank {[r['saves'] for r in runs]} (rank 0 alone writes)")
+            rel = abs(first["losses"][0] - ref_loss) / abs(ref_loss)
+            if not rel <= 1e-3:
+                fail(f"[dp] {tag}/{sharding}: step 1 loss {first['losses'][0]} vs one process {ref_loss} "
+                     f"(rel {rel:.3g} > 1e-3)")
+            for rank, r in enumerate(runs):
+                if r["launches"] != want:
+                    fail(f"[dp] {tag}/{sharding} rank {rank}: launches {r['launches']}, expected {want}")
+                launches[f"{tag}/{sharding}/rank{rank}"] = r["launches"]
+            peaks[f"{tag}/{sharding}"] = [r["peak_gib"] for r in runs]
+            samples = TRAIN_MICRO * TRAIN_ACCUM
+            print(f"[dp] {tag}/{sharding} ok: {DP_STEPS} steps + resumed to {DP_RESUME_TO}, losses "
+                  f"{np.round(first['losses'], 4).tolist()} bitwise the same on all {world} rank(s); step 1 within "
+                  f"{rel:.3g} of one process; saves per rank {[r['saves'] for r in runs]}; per rank "
+                  f"{want['flash_mha']} flash_mha and FlashMHA.backward launches, 0 GroupNorm; rank 0: "
+                  f"{first['step_ms']:.4f} ms/step = {1e3 / first['step_ms']:.4f} steps/s = "
+                  f"{1e3 / first['step_ms'] * samples:.4f} samples/s (global micro {TRAIN_MICRO} x accum "
+                  f"{TRAIN_ACCUM}), forward+backward {first['fwd_bwd_ms']:.4f} ms, optimizer+EMA "
+                  f"{first['optimizer_ema_ms']:.4f} ms (CUDA events); peak memory per rank "
+                  f"{[round(r['peak_gib'], 4) for r in runs]} GiB; device idle per rank (2 profiled steps) "
+                  f"{[round(r['idle_pct'], 2) for r in runs]}%  [{card}]")
+        for sharding in shardings:
+            shutil.rmtree(root / f"model_{tag}_{sharding}", ignore_errors=True)
+    fsdp = {k: v for k, v in peaks.items() if k.endswith("/fsdp")}
+    print(f"[dp] peak memory per rank, FSDP beside DDP: " + "; ".join(f"{k} {[round(x, 4) for x in v]} GiB"
+                                                                      for k, v in peaks.items())
+          + f" (FSDP runs: {sorted(fsdp)})  [{card}]")
+    return launches
+
+
+def phase_shard(card: str) -> dict:
+    """The [main] pipeline sharded over the cards (over [cuda:0, cuda:0] on one
+    card): a batch of SHARD_BATCH at STEPS steps bitwise the unsharded call with
+    cuDNN off, the difference with cuDNN on, and make_server over the mesh.
+    Returns the kernels' launches on the sharded path."""
+    import tempfile
+
+    import torch
+
+    from audio_diffusion_torch.ops import attention as at
+    from audio_diffusion_torch.ops import fused_groupnorm as gn
+    from audio_diffusion_torch.parallel import make_mesh
+    from audio_diffusion_torch.pipelines import AudioDiffusionPipeline
+    from audio_diffusion_torch.serving import make_server
+
+    n = torch.cuda.device_count()
+    devices = [f"cuda:{i}" for i in range(min(n, DP_MAX_RANKS))] if n >= 2 else ["cuda:0", "cuda:0"]
+    pipe = build_pipeline()
+    sharded = AudioDiffusionPipeline(pipe.unet, pipe.mel, pipe.scheduler, pipe.vqvae, device="cuda").shard(
+        make_mesh(devices=devices))
+    data = len(devices)
+
+    def call(p, cudnn):
+        torch.backends.cudnn.enabled = cudnn
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gen = torch.Generator(device="cuda").manual_seed(61)
+            raw, audio = p(batch_size=SHARD_BATCH, steps=STEPS, generator=gen, return_arrays=True)
+            for d in {*devices, "cuda:0"}:
+                torch.cuda.synchronize(d)
+            return raw, audio, time.perf_counter() - t0
+        finally:
+            torch.backends.cudnn.enabled = True
+
+    counters = (gn.group_norm_silu, at.flash_mha)
+    ref_off, ref_on = call(pipe, False), call(pipe, True)  # the unsharded calls: the comparison, not counted
+    call(sharded, False)  # warm-up of the replicas
+    for c in counters:
+        c.launches = 0
+    off, on = call(sharded, False), call(sharded, True)
+    per_call = [c.launches // 2 for c in counters]
+    want = [64 * STEPS * data, 6 * STEPS * data]
+    if [c.launches for c in counters] != [2 * w for w in want]:
+        fail(f"[shard] launches (group_norm_silu, flash_mha) {[c.launches for c in counters]} over 2 calls, "
+             f"expected {[2 * w for w in want]}")
+    def audio_diff(a, b):  # relative to the peak: Griffin-Lim runs batch-shaped matmuls and FFTs
+        return ((a[1] - b[1]).abs().max() / b[1].abs().max()).item()
+
+    if not torch.equal(off[0], ref_off[0]):
+        fail(f"[shard] with cuDNN off the sharded spectrograms are not bitwise the unsharded ones: uint8 max diff "
+             f"{(off[0].int() - ref_off[0].int()).abs().max().item()}")
+    if not audio_diff(off, ref_off) <= SHARD_AUDIO_BOUND:
+        fail(f"[shard] audio from the same spectrograms and phase differs by {audio_diff(off, ref_off)} of its peak")
+    on_diff = (on[0].int() - ref_on[0].int()).abs().max().item()
+    print(f"[shard] ok: batch {SHARD_BATCH} x {STEPS} steps over {data} replicas on {devices}: with cuDNN off the "
+          f"spectrograms bitwise the unsharded call's, audio max diff {audio_diff(off, ref_off):.3g} of its peak "
+          f"(bound {SHARD_AUDIO_BOUND:g}), wall {off[2]:.4f} s sharded vs {ref_off[2]:.4f} s unsharded; with cuDNN "
+          f"on max uint8 diff {on_diff}, audio {audio_diff(on, ref_on):.3g}, wall {on[2]:.4f} s vs {ref_on[2]:.4f} s; "
+          f"launches per call (group_norm_silu, flash_mha) {per_call}  [{card}]")
+
+    with tempfile.TemporaryDirectory() as d:
+        pipe.save_pretrained(d)
+        mesh_kw = dict(mesh_data=data) if n >= 2 else dict(mesh_devices=devices)
+        server = make_server(d, dtype="bfloat16", fused_groupnorm=True, device="cuda", port=0, max_batch=SHARD_BATCH,
+                             max_wait_ms=500, steps=STEPS, **mesh_kw)
+        tiers = server.batcher.tiers
+        if not all(t % data == 0 for t in tiers):
+            fail(f"[shard] tiers {tiers} are not multiples of the data-axis size {data}")
+        server.start()
+        try:
+            bodies = [{"seed": 400 + i} for i in range(SHARD_BATCH)]
+            t0 = time.perf_counter()
+            responses = _concurrently(*server.address[:2], bodies)
+            wall = time.perf_counter() - t0
+            _check_wavs(bodies, responses, server.batcher.pipe.mel, "[shard]")
+            batches = [(s["n"], s["tier"]) for s in server.batcher.stats]
+        finally:
+            server.stop()
+    launches = {c.__name__: c.launches for c in counters}
+    if not all(v > 0 for v in launches.values()):
+        fail(f"[shard] the kernels were not launched on the sharded path: {launches}")
+    print(f"[shard] make_server({mesh_kw}) tiers {tiers}: {SHARD_BATCH} concurrent requests answered 200 with full "
+          f"wavs in {wall:.4f} s (batches (n, tier) {batches}); launches on the sharded path {launches}  [{card}]")
+    del sharded, pipe
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_encoder_train(card: str) -> None:
+    """The full-width AudioEncoder in train mode on the card: batch
+    ENCODER_TRAIN_BATCH forward (batch statistics, dropout from a generator)
+    and backward; the running statistics move; ``encode`` is untouched by ``.train()``."""
+    import torch
+
+    from audio_diffusion_torch.models import AudioEncoder
+
+    enc = AudioEncoder().init_params(torch.Generator().manual_seed(12)).to("cuda")
+    clips = encoder_clips(2, 15)
+    enc.eval()
+    before = enc.encode(clips)
+    enc.train()
+    after = enc.encode(clips)
+    if not torch.equal(before, after):
+        fail("[encoder-train] encode changed with .train()")
+    norms = [m for m in enc.modules() if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
+    stats = [(m.running_mean.clone(), m.running_var.clone()) for m in norms]
+    x = torch.rand((ENCODER_TRAIN_BATCH, 1, 96, 216), generator=torch.Generator(device="cuda").manual_seed(4),
+                   device="cuda")
+    walls = []
+    for i in range(3):
+        enc.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = enc(x, train=True, generator=torch.Generator(device="cuda").manual_seed(5 + i))
+        out.square().mean().backward()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    grads = [p.grad for p in enc.parameters()]
+    if tuple(out.shape) != (ENCODER_TRAIN_BATCH, 100) or not torch.isfinite(out).all() or any(
+            g is None or not torch.isfinite(g).all() for g in grads):
+        fail(f"[encoder-train] output {tuple(out.shape)}, finite output/gradients failed")
+    moved = [not (torch.equal(m.running_mean, a) or torch.equal(m.running_var, b)) for m, (a, b) in zip(norms, stats)]
+    if not all(moved):
+        fail(f"[encoder-train] running statistics moved per BatchNorm: {moved}")
+    print(f"[encoder-train] ok: AudioEncoder (full width, 41,472 -> 1,024 dense) train=True batch "
+          f"{ENCODER_TRAIN_BATCH}: forward+backward wall {walls[1] * 1e3:.4f} / {walls[2] * 1e3:.4f} ms (after a "
+          f"warm-up of {walls[0] * 1e3:.4f} ms); all {len(norms)} BatchNorms' running statistics moved; encode "
+          f"bitwise the same before and after .train()  [{card}]")
+    del enc
+    torch.cuda.empty_cache()
+
+
+PHASE_GROUPS = ("kernels", "main", "apps", "cond", "train", "dp")
 
 
 def main(argv=None) -> int:
@@ -2154,10 +2519,16 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default=",".join(PHASE_GROUPS),
                     help="comma-separated phase groups for a partial run (kernels: gn, attn, attn-sweep, ref; main: "
                          "main, layers, profile, fidelity, serve, tier; apps: apps, prepare, golden; cond; train: "
-                         "attn-grad, train, train-pixel, train-vae); a partial run prints no result lines")
-    only = set(ap.parse_args(argv).only.split(","))
-    if not only <= {*PHASE_GROUPS, "tier"}:
-        ap.error(f"--only takes {PHASE_GROUPS} and tier (the [serve] phase's tier probe alone)")
+                         "attn-grad, train, train-pixel, train-vae; dp: dp, shard, encoder-train); a partial run "
+                         "prints no result lines")
+    # one rank of [dp]: the script re-runs itself with these
+    for name in ("rank", "world", "init", "device", "backend", "shardings", "root", "tag"):
+        ap.add_argument(f"--dp-{name}", default=None, help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    only = set(args.only.split(","))
+    if not only <= {*PHASE_GROUPS, "tier", "shard"}:
+        ap.error(f"--only takes {PHASE_GROUPS}, tier (the [serve] phase's tier probe alone) and shard (the dp "
+                 "group without [dp])")
     if not (REPO / "audio_diffusion_torch" / "csrc").is_dir():
         print("chip_smoke: audio_diffusion_torch/ not found beside this script; run it from a checkout",
               file=sys.stderr)
@@ -2170,6 +2541,10 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(REPO))
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.dp_rank is not None:
+        dp_rank(int(args.dp_rank), int(args.dp_world), args.dp_init, args.dp_device, args.dp_backend,
+                args.dp_shardings.split(","), Path(args.dp_root), args.dp_tag)
+        return 0
     card = card_line()
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}; "
@@ -2230,6 +2605,14 @@ def main(argv=None) -> int:
             phase_train_profile(card)
             phase_train_pixel(card)
             phase_train_vae(card, Path(d) / "slices")
+    if "dp" in only:
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as d:
+            dp_launches = phase_dp(card, Path(d))
+    if "dp" in only or "shard" in only:
+        shard_launches = phase_shard(card)
+        phase_encoder_train(card)
     if only != set(PHASE_GROUPS):  # a partial run
         print(f"chip_smoke: partial run of {sorted(only)} done in {time.perf_counter() - t_start:.1f} s; no result")
         return 0
@@ -2241,6 +2624,8 @@ def main(argv=None) -> int:
               "serve_launches": serve_launches["group_norm_silu"], "apps_launches": apps_launches["group_norm_silu"],
               "cond_launches": cond_launches["group_norm_silu"], "cond_launches_per_request": COND_NORMS * STEPS,
               "train_launches": {"forward": train_launches["group_norm_silu"], "backward": 0},
+              "dp_launches": {run: {"forward": v["group_norm_silu"], "backward": 0} for run, v in dp_launches.items()},
+              "shard_launches": shard_launches["group_norm_silu"],
               "max_abs_err": gn_err["f32"], "bf16_max_ulps": gn_err["bf16_ulps"]}
     at_row = {"name": "flash_mha", "route": "cuda", "source": "audio_diffusion_torch/csrc/mha.cu",
               "replaces": "audio_diffusion_tpu/ops/pallas_attention.py:55", "launches": launches["flash_mha"],
@@ -2248,6 +2633,9 @@ def main(argv=None) -> int:
               "apps_launches": apps_launches["flash_mha"], "cond_launches": cond_launches["flash_mha"],
               "train_launches": {"forward": train_launches["flash_mha"],
                                  "backward": train_launches["FlashMHA.backward"]},
+              "dp_launches": {run: {"forward": v["flash_mha"], "backward": v["FlashMHA.backward"]}
+                              for run, v in dp_launches.items()},
+              "shard_launches": shard_launches["flash_mha"],
               "grad_ms": grad_t["ms"], "grad_graph_ms": grad_t["graph_ms"], "grad_library_ms": grad_t["library_ms"],
               "grad_library_graph_ms": grad_t["library_graph_ms"], "max_abs_err": at_err["f32"]}
     keys = ("ms", "graph_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_graph_ms")
@@ -2257,6 +2645,10 @@ def main(argv=None) -> int:
             fail(f"kernel {k['name']} was not launched on the main path")
     if not (train_launches["flash_mha"] > 0 and train_launches["FlashMHA.backward"] > 0):
         fail("flash_mha and its backward were not launched on the training path")
+    if not all(v["flash_mha"] > 0 and v["FlashMHA.backward"] > 0 for v in dp_launches.values()):
+        fail(f"flash_mha and its backward were not launched on every data-parallel rank: {dp_launches}")
+    if not all(v > 0 for v in shard_launches.values()):
+        fail(f"the kernels were not launched on the sharded path: {shard_launches}")
     if not all(v > 0 for v in apps_launches.values()):
         fail(f"the kernels were not launched on the convenience layer's path: {apps_launches}")
     print(f"(times per UNet forward at batch 32, bf16: ms by CUDA events around eager calls, host gaps included; "

@@ -547,3 +547,47 @@ def test_stitch_on_the_card_stays_on_the_device(tmp_path):
         assert (gn.group_norm_silu.launches - before[0], at.flash_mha.launches - before[1]) == \
             (2 * n_res * steps * n_calls, n_attn * steps * n_calls)
     assert calls == [(n_windows, 16 * 512)]
+
+
+@pytest.mark.cuda
+def test_nccl_world_one_ddp_step_equals_the_plain_step(tmp_path):
+    """DDP over a one-rank NCCL group on the card: the averaged gradient is
+    the rank's own, so the step (flash_mha forward and FlashMHA backward
+    inside the wrapped UNet, accumulation 2) gives the plain step's bits."""
+    _cuda()
+    import torch.distributed as dist
+
+    from audio_diffusion_torch.models import UNet2D, UNetConfig
+    from audio_diffusion_torch.parallel import init_distributed
+    from audio_diffusion_torch.schedulers import DDPMScheduler
+    from audio_diffusion_torch.training import train_unet as tt
+
+    kw = dict(sample_size=(8, 8), block_out_channels=(32, 64), down_block_types=("DownBlock2D", "AttnDownBlock2D"),
+              up_block_types=("AttnUpBlock2D", "UpBlock2D"), layers_per_block=1, norm_num_groups=8,
+              attention_head_dim=8)
+    base = UNet2D(UNetConfig(**kw)).init_params(torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    images = torch.rand((2, 4, 8, 8, 1), generator=g) * 2 - 1
+    draws = dict(timesteps=torch.randint(0, 1000, (2, 4), generator=g),
+                 noise=torch.randn((2, 4, 8, 8, 1), generator=g))
+    cfg = tt.TrainConfig(learning_rate=1e-3, lr_warmup_steps=0, total_steps=10, gradient_accumulation_steps=2)
+    out = []
+    assert init_distributed(f"file://{tmp_path}/rendezvous", 1, 0, device="cuda:0") == 0
+    try:
+        for wrap in (False, True):
+            unet = UNet2D(UNetConfig(**kw))
+            unet.load_state_dict(base.state_dict())
+            unet = unet.to("cuda").train()
+            model = tt.wrap_unet(cfg, unet) if wrap else unet
+            assert isinstance(model, torch.nn.parallel.DistributedDataParallel) == wrap
+            state = tt.init_train_state(cfg, model)
+            before = (at.flash_mha.launches, at.FlashMHA.backwards)
+            state, metrics = tt.make_train_step(cfg, model, DDPMScheduler())(state, images, **draws)
+            torch.cuda.synchronize()
+            assert at.flash_mha.launches > before[0] and at.FlashMHA.backwards > before[1]
+            out.append((metrics["loss"], {k: p.detach().clone() for k, p in state.params.items()}))
+    finally:
+        dist.destroy_process_group()
+    (loss_plain, plain), (loss_ddp, ddp) = out
+    assert torch.equal(loss_plain, loss_ddp)
+    assert all(torch.equal(plain[k], ddp[k]) for k in plain)

@@ -299,6 +299,97 @@ def test_ddim_step_and_postprocess_match_jax():
                                       np.asarray(jax_postprocess(jnp.asarray(img[..., :c]))))
 
 
+# ---------------------------------------------------- sharded inference (tests/test_pipeline.py:241-261, 310-336)
+
+@pytest.fixture
+def one_thread():
+    """torch's CPU kernels give a row the same bits in any batch only on one
+    thread (GroupNorm splits a group's reduction across threads when batch x
+    groups is small) and with at least 2 rows (a lone row takes GEMV and
+    another convolution kernel): the sharded tests run so, 2 rows per replica."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _sharded(tpipe, n=2):
+    """``tpipe``'s modules split over ``n`` shares of the CPU (``make_mesh`` allows a repeated device)."""
+    from audio_diffusion_torch.parallel import make_mesh
+
+    return TorchPipeline(tpipe.unet, TorchMel(**MEL_KW, device="cpu"), tpipe.scheduler, tpipe.vqvae,
+                         device="cpu").shard(make_mesh(devices=["cpu"] * n))
+
+
+def _assert_equal(a, b):
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_sharded_generation_matches_unsharded_and_jax(pipes, one_thread):
+    """The sharded call is bitwise the unsharded one, with injected draws and
+    with the draws of a generator (made on the primary device in the
+    unsharded order), and within the port's tolerance of the JAX package's."""
+    jpipe, tpipe = pipes
+    sharded = _sharded(tpipe)
+    noise = _noise(12, (4, 16, 16, 1))
+    key = jax.random.key(13)
+    raw_j, _ = jpipe(batch_size=4, steps=3, key=key, noise=jnp.asarray(noise), return_arrays=True, pcm16=True)
+    phase, _, _ = _jax_draws(key, 4, (16, 16, 1), 0)
+    kw = dict(noise=torch.from_numpy(noise), steps=3, gl_phase=phase, return_arrays=True, pcm16=True)
+    got = sharded(**kw)
+    _assert_equal(got, tpipe(**kw))
+    _assert_uint8_close(got[0].numpy(), np.asarray(raw_j))
+    for extra in ({}, {"eta": 0.7}):  # noise, then step noise of the shared chain, then the phase
+        kw = dict(batch_size=4, steps=2, return_arrays=True, **extra)
+        _assert_equal(sharded(generator=torch.Generator().manual_seed(3), **kw),
+                      tpipe(generator=torch.Generator().manual_seed(3), **kw))
+    out = sharded(batch_size=4, steps=2)
+    assert len(out.audios) == 4 and out.raw_images.shape == (4, 32, 32)
+    np.testing.assert_array_equal(sharded(batch_size=4, steps=2, return_images_only=True), out.raw_images)
+    with pytest.raises(ValueError, match="multiple of the mesh's data-axis size"):
+        sharded(batch_size=3, steps=2)
+
+
+def test_sharded_audio_to_audio_matches_unsharded(pipes, one_thread):
+    """Batched rows split with their clips; one broadcast clip takes its
+    posterior draw from the generator on the primary device, as the
+    unsharded call does."""
+    _, tpipe = pipes
+    sharded = _sharded(tpipe)
+    batched = dict(raw_audio=_clips(14, 4), noise=torch.from_numpy(_noise(15, (4, 16, 16, 1))), start_step=1,
+                   steps=3, mask_start_secs=0.1, return_arrays=True)
+    single = dict(raw_audio=_clips(16, 1)[0], batch_size=4, start_step=1, steps=3, mask_end_secs=0.1,
+                  return_arrays=True)
+    for kw in (batched, single):
+        _assert_equal(sharded(generator=torch.Generator().manual_seed(4), **kw),
+                      tpipe(generator=torch.Generator().manual_seed(4), **kw))
+    with pytest.raises(ValueError, match="raw_audio batch"):
+        sharded(raw_audio=_clips(0, 2), noise=torch.from_numpy(_noise(0, (4, 16, 16, 1))), steps=2)
+
+
+def test_sharded_conditional_and_per_row_generators(one_thread):
+    """encoding= rows and per-row step generators split with their rows (DDPM: every step draws)."""
+    kw = dict(UNET_KW, sample_size=(32, 32), down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
+              up_block_types=("UpBlock2D", "CrossAttnUpBlock2D"), attention_head_dim=4, cross_attention_dim=12)
+    unet = TorchUNet(TorchUNetConfig(**kw)).init_params(torch.Generator().manual_seed(5))
+    tpipe = TorchPipeline(unet, TorchMel(**MEL_KW, device="cpu"),
+                          TorchDDPM(TorchSchedulerConfig(num_train_timesteps=100)), device="cpu")
+    sharded = _sharded(tpipe)
+    enc = np.random.default_rng(6).standard_normal((4, 1, 12)).astype(np.float32)
+    for gens in (None, lambda: [torch.Generator().manual_seed(s) for s in range(4)]):
+        call = dict(batch_size=4, steps=3, encoding=enc, return_arrays=True)
+        a = tpipe(generator=torch.Generator().manual_seed(7), step_generator=gens and gens(), **call)
+        b = sharded(generator=torch.Generator().manual_seed(7), step_generator=gens and gens(), **call)
+        _assert_equal(a, b)
+    with pytest.raises(ValueError, match="encoding batch axis"):
+        sharded(batch_size=2, steps=2, encoding=enc)
+    from audio_diffusion_torch.parallel import make_mesh
+
+    with pytest.raises(ValueError, match="along 'data' only"):
+        tpipe.shard(make_mesh(num_data=1, num_model=2, devices=["cpu", "cpu"]))
+
+
 def test_port_imports_no_jax():
     code = ("import sys, audio_diffusion_torch, audio_diffusion_torch.pipelines.pipeline, "
             "audio_diffusion_torch.utils.convert, audio_diffusion_torch.utils.diffusers_io, "
@@ -312,7 +403,7 @@ def test_port_imports_no_jax():
             "audio_diffusion_torch.utils.ldm_import, audio_diffusion_torch.utils.profiling, "
             "audio_diffusion_torch.data.native_audio, audio_diffusion_torch.data.prepare, "
             "audio_diffusion_torch.scripts.audio_to_images, audio_diffusion_torch.scripts.encode_audio, "
-            "audio_diffusion_torch.scripts.convert_checkpoint; "
+            "audio_diffusion_torch.scripts.convert_checkpoint, audio_diffusion_torch.parallel; "
             "bad = [m for m in ('jax', 'flax', 'optax', 'audio_diffusion_tpu') if m in sys.modules]; "
             "assert not bad, bad")
     env = {**os.environ, "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH", "")}

@@ -570,3 +570,68 @@ def test_http_conditional_json_encodings(cond_pipe):
         assert resp.status == 400 and b"cross_attention_dim" in data
     finally:
         server.stop()
+
+
+# ------------------------------------------------------------ sharded serving (tests/test_serving.py:346-391, 603-631)
+
+def _sharded_pipe(n=2):
+    """The ``pipe`` fixture's model (same seed, same weights) split over ``n`` shares of the CPU."""
+    from audio_diffusion_torch.parallel import make_mesh
+
+    return _pipe().shard(make_mesh(devices=["cpu"] * n))
+
+
+@pytest.mark.parametrize("eta", [0.0, 1.0])
+def test_sharded_batcher_over_mesh(pipe, eta):
+    """Over a 2-way data axis the tiers are multiples of 2, and a request's
+    spectrogram stays bitwise its unsharded solo run (the per-request noise
+    and per-row step generators survive the split)."""
+    solo = _solo(pipe, 7, 3, eta)
+    sharded = _sharded_pipe()
+    with pytest.raises(ValueError, match="multiple of the mesh"):
+        DynamicBatcher(sharded, max_batch=3)
+    batcher = DynamicBatcher(sharded, max_batch=8, max_wait_ms=200, steps=3, eta=eta)
+    assert batcher.tiers == (2, 4, 8)
+    try:
+        futs = [batcher.submit(seed=s) for s in (3, 7, 11)]  # pads to tier 4
+        results = [f.result(timeout=120) for f in futs]
+    finally:
+        batcher.close()
+    np.testing.assert_array_equal(results[1].image, solo)
+    assert {s["tier"] for s in batcher.stats} <= {2, 4}
+
+
+def test_sharded_audio_to_audio_over_mesh(pipe):
+    """Audio-to-audio requests over the mesh: each clip splits with its row,
+    bitwise the unsharded batched call."""
+    full = RES * HOP
+    clips = (np.random.default_rng(3).standard_normal((2, full)) * 0.1).astype(np.float32)
+    noise = np.stack([_noise_for_seed(s, RES, RES, 1) for s in (0, 1)])
+    direct = pipe(raw_audio=clips, noise=noise, start_step=2, steps=4, return_arrays=True)[0].numpy()
+    batcher = DynamicBatcher(_sharded_pipe(), max_batch=4, max_wait_ms=300, steps=4, allowed_start_steps=(2,))
+    try:
+        futs = [batcher.submit(seed=s, audio=clips[s], start_step=2) for s in (0, 1)]
+        results = [f.result(timeout=180) for f in futs]
+    finally:
+        batcher.close()
+    for i in (0, 1):
+        np.testing.assert_array_equal(results[i].image, direct[i])
+
+
+def test_make_server_mesh_data_and_cli(pipe, tmp_path):
+    pipe.save_pretrained(str(tmp_path))
+    server = make_server(str(tmp_path), fused_groupnorm=True, device="cpu", mesh_data=2, port=0, max_batch=4,
+                         steps=2)
+    sharded = server.batcher.pipe
+    assert dict(sharded.mesh.shape) == {"data": 2, "model": 1} and server.batcher.tiers == (2, 4)
+    server.start()
+    try:
+        resp, data = _post(*server.address[:2], {"seed": 5, "format": "json"})
+        assert resp.status == 200
+        np.testing.assert_array_equal(np.asarray(json.loads(data)["image"], dtype=np.uint8), _solo(pipe, 5, 2))
+    finally:
+        server.stop()
+    with pytest.raises(ValueError, match="multiple of the mesh"):
+        make_server(str(tmp_path), device="cpu", mesh_data=2, max_batch=3)
+    assert parse_args(["--model", "m", "--mesh_data", "4"]).mesh_data == 4
+    assert parse_args(["--model", "m"]).mesh_data is None

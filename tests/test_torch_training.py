@@ -283,8 +283,15 @@ def test_train_step_draws_from_the_seed_and_step_and_refuses_partial_draws():
     assert losses[0] == losses[1] and losses[0][0] != losses[0][1]
     with pytest.raises(ValueError, match="inject every draw"):
         step(state, images, timesteps=np.zeros((1, 2), np.int64))
-    with pytest.raises(ValueError, match="one device"):
-        tt.make_train_step(tt.TrainConfig(param_sharding="fsdp"), unet, TorchDDPM())
+    # without a process group both shardings are the one-device step, as on a one-device JAX mesh
+    unet = TorchUNet(port.config)
+    unet.load_state_dict(port.state_dict())
+    fsdp = tt.TrainConfig(use_ema=False, param_sharding="fsdp")
+    assert tt.wrap_unet(fsdp, unet) is unet
+    step = tt.make_train_step(fsdp, unet, TorchDDPM())
+    assert float(step(tt.init_train_state(fsdp, unet), images, seed=3)[1]["loss"]) == losses[0][0]
+    with pytest.raises(ValueError, match="unknown param_sharding"):
+        tt.wrap_unet(tt.TrainConfig(param_sharding="zero3"), unet)
 
 
 # ------------------------------------------------------------------------ data
@@ -442,11 +449,15 @@ def test_training_cli_on_the_cpu(dataset_dir, seed_pipeline, tmp_path):
 
 
 def test_training_cli_refuses_what_the_port_does_not_run(dataset_dir):
+    """--push_to_hub raises (no network path); --mesh_data 2 in one process
+    raises and names the launcher (one process per card; the 2-process runs
+    are in test_torch_dp_training.py)."""
     from audio_diffusion_torch.training.__main__ import main
 
-    for extra in (["--param_sharding", "fsdp"], ["--mesh_data", "2"], ["--push_to_hub", "true"]):
-        with pytest.raises(SystemExit):
-            main(["--dataset", dataset_dir, "--device", "cpu", *extra])
+    with pytest.raises(SystemExit):
+        main(["--dataset", dataset_dir, "--device", "cpu", "--push_to_hub", "true"])
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
+        main(["--dataset", dataset_dir, "--device", "cpu", "--mesh_data", "2", "--param_sharding", "fsdp"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             run_training(RunConfig(dataset=dataset_dir), tt.TrainConfig())
