@@ -178,9 +178,12 @@ class ResnetBlock2D(nn.Module):
             return fused_group_norm_silu(x.contiguous(), norm.weight, norm.bias, self.groups, self.eps)
         return group_norm(x, norm, silu=True)
 
-    def forward(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, temb: torch.Tensor, rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``temb`` holds one embedding per distinct timestep; ``rows`` gives
+        each row of ``x`` its timestep's index (None: one timestep for all)."""
         h = self.conv1(self._norm_silu(x, self.norm1))
-        h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
+        t = self.time_emb_proj(F.silu(temb))
+        h = h + (t if rows is None else t[rows])[:, :, None, None]
         h = self.conv2(self._norm_silu(h, self.norm2))
         res = x if self.conv_shortcut is None else self.conv_shortcut(x)
         return res + h
@@ -213,6 +216,16 @@ class SelfAttention2D(nn.Module):
         return o.transpose(1, 2).reshape(b, c, h, w) + x
 
 
+def rowwise_linear(linear: Linear, x: torch.Tensor) -> torch.Tensor:
+    """``linear(x)`` for a bias-free ``linear`` and (B, S, I) ``x``, as one
+    GEMM per row of the batch (a batched matmul against the weight broadcast
+    over B). F.linear folds B into one GEMM of M=B*S rows, and a CPU BLAS picks
+    another kernel for another M, so with S=1 a row's bits would depend on its
+    batch; here each row's GEMM has M=S whatever B is."""
+    w = linear.weight.to(x.dtype).t()
+    return torch.bmm(x, w.expand(x.shape[0], *w.shape))
+
+
 class CrossAttention(nn.Module):
     """Multi-head attention whose keys and values come from ``context`` (or
     from x itself when it is None); to_q/to_k/to_v have no bias."""
@@ -227,12 +240,15 @@ class CrossAttention(nn.Module):
         self.to_out = nn.ModuleList([Linear(inner, query_dim)])
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
-        context = x if context is None else context
         b, n, _ = x.shape
-        m = context.shape[1]
         q = self.to_q(x).reshape(b, n, self.heads, self.head_dim)
-        k = self.to_k(context).reshape(b, m, self.heads, self.head_dim)
-        v = self.to_v(context).reshape(b, m, self.heads, self.head_dim)
+        if context is None:
+            k, v = self.to_k(x), self.to_v(x)
+        else:  # the conditioning is a few tokens per row: its projections run row by row
+            k, v = rowwise_linear(self.to_k, context), rowwise_linear(self.to_v, context)
+        m = k.shape[1]
+        k = k.reshape(b, m, self.heads, self.head_dim)
+        v = v.reshape(b, m, self.heads, self.head_dim)
         o = dot_product_attention(q, k, v)
         return self.to_out[0](o.reshape(b, n, self.heads * self.head_dim))
 
@@ -429,7 +445,7 @@ class UNet2D(nn.Module):
                 encoder_hidden_states: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Args:
             sample: (B, H, W, C) noisy images, NHWC.
-            timesteps: scalar or (B,) diffusion timesteps.
+            timesteps: scalar (one for every row) or (B,) diffusion timesteps.
             encoder_hidden_states: (B, seq, cross_attention_dim) conditioning;
                 required by a conditional UNet, ignored by an unconditional one.
         Returns:
@@ -445,11 +461,17 @@ class UNet2D(nn.Module):
                              "(2^(num_blocks-1)) or the up-path skip shapes break")
         _check_attention_tokens(cfg, sample.shape[1], sample.shape[2])
         context = None if encoder_hidden_states is None else encoder_hidden_states.to(dtype)
+        # The time path runs once per distinct timestep and is gathered per row, so its GEMMs see the
+        # same M whatever the batch: a CPU BLAS picks another kernel for M=4 than for M=2, and a row's
+        # bits would then depend on its batch. A single timestep (the pipeline's scalar) needs no
+        # torch.unique, which would wait for the device and cannot be captured in a CUDA graph.
         timesteps = torch.as_tensor(timesteps, device=sample.device)
-        if timesteps.dim() == 0:
-            timesteps = timesteps.expand(sample.shape[0])
+        if timesteps.numel() == 1:
+            steps, rows = timesteps.reshape(1), None
+        else:
+            steps, rows = torch.unique(timesteps, return_inverse=True)
 
-        temb = timestep_embedding(timesteps, cfg.block_out_channels[0], cfg.flip_sin_to_cos, cfg.freq_shift)
+        temb = timestep_embedding(steps, cfg.block_out_channels[0], cfg.flip_sin_to_cos, cfg.freq_shift)
         temb = self.time_embedding(temb.to(dtype))
 
         x = self.conv_in(sample.permute(0, 3, 1, 2).to(dtype).contiguous())
@@ -457,7 +479,7 @@ class UNet2D(nn.Module):
         skips = [x]
         for i, blk in enumerate(self.down_blocks):
             for j, res in enumerate(blk.resnets):
-                x = res(x, temb)
+                x = res(x, temb, rows)
                 if len(blk.attentions):
                     x = _attend(blk.attentions[j], x, context)
                 skips.append(x)
@@ -465,13 +487,13 @@ class UNet2D(nn.Module):
                 x = blk.downsamplers[0](x)
                 skips.append(x)
 
-        x = self.mid_block.resnets[0](x, temb)
+        x = self.mid_block.resnets[0](x, temb, rows)
         x = _attend(self.mid_block.attentions[0], x, context)
-        x = self.mid_block.resnets[1](x, temb)
+        x = self.mid_block.resnets[1](x, temb, rows)
 
         for i, blk in enumerate(self.up_blocks):
             for j, res in enumerate(blk.resnets):
-                x = res(torch.cat([x, skips.pop()], dim=1), temb)
+                x = res(torch.cat([x, skips.pop()], dim=1), temb, rows)
                 if len(blk.attentions):
                     x = _attend(blk.attentions[j], x, context)
             if i != n - 1:

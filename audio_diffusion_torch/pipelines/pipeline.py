@@ -40,7 +40,7 @@ from PIL import Image
 from ..mel import Mel
 from ..models.unet2d import UNet2D
 from ..models.vae import AutoencoderKL
-from ..schedulers import DDIMScheduler, DDPMScheduler, load_scheduler
+from ..schedulers import DDIMScheduler, DDPMScheduler, load_scheduler, save_scheduler
 from ..schedulers.common import step_noises
 from ..utils import diffusers_io
 from ..utils.hub import resolve_pretrained
@@ -323,7 +323,7 @@ class AudioDiffusionPipeline:
         x = images
         for t in timesteps:
             t = int(t)
-            model_output = self.unet(x, torch.full((rows,), t, dtype=torch.int64, device=self.device), enc)
+            model_output = self.unet(x, torch.full((), t, dtype=torch.int64, device=self.device), enc)
             noise_t = next(noises) if stochastic else None
             if is_ddim:
                 x = self.scheduler.step(model_output, t, x, schedule, eta=float(eta), noise=noise_t)
@@ -436,7 +436,7 @@ class AudioDiffusionPipeline:
             x = LATENT_SCALE * self.vqvae.encode(x).mode()
         for t in schedule.timesteps[::-1]:
             t = int(t)
-            model_output = self.unet(x, torch.full((x.shape[0],), t, dtype=torch.int64, device=self.device))
+            model_output = self.unet(x, torch.full((), t, dtype=torch.int64, device=self.device))
             x = self.scheduler.invert_step(model_output, t, x, schedule)
         return x
 
@@ -450,62 +450,70 @@ class AudioDiffusionPipeline:
         return torch.sin((1 - alpha) * theta) / sin_theta * x0 + torch.sin(alpha * theta) / sin_theta * x1
 
     # ------------------------------------------------------------- persistence
-    def save_pretrained(self, directory: str) -> None:
-        """Write the diffusers layout that ``torch_export.save_pipeline_torch``
-        writes (torch_export.py:250-290): ``model_index.json``, then ``unet/``,
-        ``scheduler/``, ``mel/`` and ``vqvae/``. The JAX package's
-        ``from_pretrained`` loads it; the compute ``dtype`` and
-        ``fused_groupnorm`` are not stored (see :meth:`from_pretrained`)."""
+    def save_pretrained(self, directory: str, layout: str = "diffusers") -> None:
+        """Write the pipeline in ``layout``:
+
+        - ``"diffusers"``: what ``torch_export.save_pipeline_torch`` writes
+          (torch_export.py:250-290): ``model_index.json``, then ``unet/``,
+          ``scheduler/``, ``mel/`` and ``vqvae/`` with diffusers configs and
+          ``diffusion_pytorch_model.bin``. The compute ``dtype`` and
+          ``fused_groupnorm`` are not stored (see :meth:`from_pretrained`).
+        - ``"native"``: what the JAX package's ``save_pretrained`` writes
+          (pipeline.py:677-702): the config dataclasses' own JSON (with
+          ``dtype`` and ``fused_groupnorm``) and ``params.msgpack``.
+
+        The JAX package's ``from_pretrained`` loads either. Weights files are
+        written through a temporary file, an fsync and a rename."""
+        if layout not in diffusers_io.LAYOUTS:
+            raise ValueError(f"layout {layout!r}: expected one of {diffusers_io.LAYOUTS}")
         os.makedirs(directory, exist_ok=True)
-        index = {
-            "_class_name": "AudioDiffusionPipeline",
-            "_diffusers_version": diffusers_io.DIFFUSERS_VERSION,
-            "mel": ["diffusers", "Mel"],
-            "scheduler": ["diffusers", type(self.scheduler).__name__],
-            "unet": ["diffusers", "UNet2DConditionModel" if self.unet.config.is_conditional else "UNet2DModel"],
-        }
-        if self.vqvae is not None:
-            index["vqvae"] = ["diffusers", "AutoencoderKL"]
+        scheduler_name = type(self.scheduler).__name__
+        if layout == "native":
+            index = {"_class_name": "AudioDiffusionPipeline", "unet": True, "scheduler": scheduler_name,
+                     "mel": True, "vqvae": self.vqvae is not None}
+            save_scheduler(self.scheduler, os.path.join(directory, "scheduler"))
+            self.mel.save_pretrained(os.path.join(directory, "mel"))
+        else:
+            index = {
+                "_class_name": "AudioDiffusionPipeline",
+                "_diffusers_version": diffusers_io.DIFFUSERS_VERSION,
+                "mel": ["diffusers", "Mel"],
+                "scheduler": ["diffusers", scheduler_name],
+                "unet": ["diffusers", "UNet2DConditionModel" if self.unet.config.is_conditional else "UNet2DModel"],
+            }
+            if self.vqvae is not None:
+                index["vqvae"] = ["diffusers", "AutoencoderKL"]
+            for sub, cfg, name in (("scheduler", self.scheduler.config, scheduler_name),
+                                   ("mel", self.mel.config, "Mel")):
+                d = {**cfg.config_dict(), "_class_name": name, "_diffusers_version": diffusers_io.DIFFUSERS_VERSION}
+                d.pop("_version")
+                diffusers_io.write_json(d, os.path.join(directory, sub, cfg.config_name))
         diffusers_io.write_json(index, os.path.join(directory, "model_index.json"))
-
-        unet_dir = os.path.join(directory, "unet")
-        diffusers_io.write_json(diffusers_io.unet_config_to_diffusers(self.unet.config),
-                                os.path.join(unet_dir, "config.json"))
-        diffusers_io.save_state_dict(self.unet, unet_dir)
-
-        for sub, cfg, name in (("scheduler", self.scheduler.config, type(self.scheduler).__name__),
-                               ("mel", self.mel.config, "Mel")):
-            d = {**cfg.config_dict(), "_class_name": name, "_diffusers_version": diffusers_io.DIFFUSERS_VERSION}
-            d.pop("_version")
-            diffusers_io.write_json(d, os.path.join(directory, sub, cfg.config_name))
-
+        diffusers_io.write_unet(self.unet, os.path.join(directory, "unet"), layout)
         if self.vqvae is not None:
-            vae_dir = os.path.join(directory, "vqvae")
-            diffusers_io.write_json(diffusers_io.vae_config_to_diffusers(self.vqvae.config),
-                                    os.path.join(vae_dir, "config.json"))
-            diffusers_io.save_state_dict(self.vqvae, vae_dir)
+            diffusers_io.write_vae(self.vqvae, os.path.join(directory, "vqvae"), layout)
 
     @classmethod
     def from_pretrained(cls, directory: str, dtype: Optional[str] = None, fused_groupnorm: Optional[bool] = None,
                         device: torch.device | str = "cuda") -> "AudioDiffusionPipeline":
-        """Load a pipeline directory in the diffusers layout: what
-        :meth:`save_pretrained` or the JAX package's ``save_pipeline_torch``
-        writes.
+        """Load a pipeline directory in either layout of :meth:`save_pretrained`,
+        as written by this package or the JAX package (its ``save_pretrained``
+        or ``save_pipeline_torch``); each weights file is detected per model
+        directory (``params.msgpack``, ``.safetensors`` or ``.bin``).
 
         ``dtype`` ("float32" | "bfloat16") overrides the compute dtype of the
-        UNet and VAE (weights stay f32), as the JAX method does. The
-        diffusers config carries no ``fused_groupnorm``: without
-        ``fused_groupnorm=True`` the loaded UNet takes torch's GroupNorm, not
-        the kernel. ``directory`` may also be a Hub model id like
+        UNet and VAE (weights stay f32), as the JAX method does, and
+        ``fused_groupnorm`` the UNet's. A native config carries both; a
+        diffusers config carries neither, so without ``fused_groupnorm=True``
+        a UNet loaded from it takes torch's GroupNorm, not the kernel.
+        ``directory`` may also be a Hub model id like
         ``teticio/audio-diffusion-256``, resolved from the local HF cache
         only (:func:`..utils.hub.resolve_pretrained`)."""
         directory = resolve_pretrained(directory)
-        unet_dir = os.path.join(directory, "unet")
-        unet_cfg = diffusers_io.unet_config_from_diffusers(diffusers_io.read_json(f"{unet_dir}/config.json"))
+        unet_cfg, unet_sd = diffusers_io.read_unet(os.path.join(directory, "unet"))
         overrides = {k: v for k, v in (("dtype", dtype), ("fused_groupnorm", fused_groupnorm)) if v is not None}
         unet = UNet2D(dataclasses.replace(unet_cfg, **overrides))
-        unet.load_state_dict(diffusers_io.linear_from_conv1x1(diffusers_io.load_state_dict(unet_dir), unet),
-                             strict=True)
+        unet.load_state_dict(diffusers_io.linear_from_conv1x1(unet_sd, unet), strict=True)
 
         scheduler = load_scheduler(os.path.join(directory, "scheduler"))
         # a top-level mel_config.json is read too, as torch_import.py:531 reads it
@@ -515,9 +523,9 @@ class AudioDiffusionPipeline:
         vqvae = None
         vae_dir = os.path.join(directory, "vqvae")
         if os.path.isdir(vae_dir):
-            vae_cfg = diffusers_io.vae_config_from_diffusers(diffusers_io.read_json(f"{vae_dir}/config.json"))
+            vae_cfg, vae_sd = diffusers_io.read_vae(vae_dir)
             if dtype is not None:
                 vae_cfg = dataclasses.replace(vae_cfg, dtype=dtype)
             vqvae = AutoencoderKL(vae_cfg)
-            vqvae.load_state_dict(diffusers_io.load_state_dict(vae_dir), strict=True)
+            vqvae.load_state_dict(vae_sd, strict=True)
         return cls(unet, mel, scheduler, vqvae, device=device)

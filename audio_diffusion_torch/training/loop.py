@@ -86,15 +86,17 @@ class RunConfig:
 
 
 def load_vae(path: str, device):
-    """The AutoencoderKL of a diffusers-layout directory (``<path>`` or
-    ``<path>/vqvae``; a Hub id resolves from the local HF cache), f32 as
-    saved: encode precision is part of the data."""
+    """The AutoencoderKL of a VAE directory in the diffusers or the native
+    layout (``<path>`` or ``<path>/vqvae``; a Hub id resolves from the local
+    HF cache), in the compute dtype its config names (a diffusers config:
+    f32), as the JAX trainer loads it: encode precision is part of the data."""
     from ..models.vae import AutoencoderKL
 
     path = resolve_pretrained(path)
     vae_dir = path if os.path.exists(os.path.join(path, "config.json")) else os.path.join(path, "vqvae")
-    vae = AutoencoderKL(diffusers_io.vae_config_from_diffusers(diffusers_io.read_json(f"{vae_dir}/config.json")))
-    vae.load_state_dict(diffusers_io.load_state_dict(vae_dir), strict=True)
+    config, state_dict = diffusers_io.read_vae(vae_dir)
+    vae = AutoencoderKL(config)
+    vae.load_state_dict(state_dict, strict=True)
     return vae.to(device).eval()
 
 

@@ -297,6 +297,7 @@ def main(argv=None):
     rng = np.random.default_rng(a.seed)
     step = 0
     gen_metrics = {}
+    logged = []  # (step, loss) of every logged step
     t0 = time.time()
     for epoch in range(a.max_epochs):
         for batch in prefetch(epoch_batches(dataset, a.batch_size, a.gradient_accumulation_steps, rng),
@@ -312,6 +313,7 @@ def main(argv=None):
             step += 1
             if step % 50 == 0 or step == 1:
                 logs = {k: float(v) for k, v in metrics.items()}
+                logged.append((step, logs["loss"]))
                 logging.info("epoch %d step %d: %s", epoch, step, logs)
                 if writer:
                     for k, v in logs.items():
@@ -339,7 +341,7 @@ def main(argv=None):
             break
     if writer:
         writer.close()
-    result = {"steps": step, "seconds": time.time() - t0, "output": a.hf_checkpoint_dir}
+    result = {"steps": step, "seconds": time.time() - t0, "output": a.hf_checkpoint_dir, "logged_losses": logged}
     print(result)
     return result
 

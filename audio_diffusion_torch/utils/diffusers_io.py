@@ -1,27 +1,43 @@
-"""The diffusers on-disk layout of the port's UNet and VAE: configs and weights.
+"""The on-disk layouts of the port's UNet and VAE: configs and weights.
 
-A copy of the layout parts of ``audio_diffusion_tpu/utils/torch_export.py``
-(``unet_config_to_diffusers``, ``vae_config_to_diffusers``,
-torch_export.py:152-231) and ``torch_import.py`` (``unet_config_from_diffusers``,
-``vae_config_from_diffusers``, torch_import.py:222-299), so a directory that
-either package writes loads in the other. The port's state-dict keys already
-are the diffusers keys (``utils/convert.py``), so weights need no mapping
-beyond squeezing 1x1-conv projections (:func:`linear_from_conv1x1`):
-``diffusion_pytorch_model.bin`` is written with ``torch.save`` and read with
-``torch.load(weights_only=True)``. ``.safetensors`` weights need the
-``safetensors`` package, which the port does not use: such a directory raises.
+Two layouts, as the JAX package reads them:
+
+- **diffusers**: ``config.json`` in diffusers' names and
+  ``diffusion_pytorch_model.bin`` (or ``.safetensors``). A copy of the layout
+  parts of ``audio_diffusion_tpu/utils/torch_export.py``
+  (``unet_config_to_diffusers``, ``vae_config_to_diffusers``,
+  torch_export.py:152-231) and ``torch_import.py`` (``unet_config_from_diffusers``,
+  ``vae_config_from_diffusers``, torch_import.py:222-299). The port's
+  state-dict keys already are the diffusers keys (``utils/convert.py``), so
+  weights need no mapping beyond squeezing 1x1-conv projections
+  (:func:`linear_from_conv1x1`). ``.bin`` is written with ``torch.save`` and
+  read with ``torch.load(weights_only=True)``; ``.safetensors`` is read by
+  :mod:`.safetensors_io`.
+- **native**: the JAX package's own ``save_pretrained`` layout
+  (pipelines/pipeline.py:666-702): ``config.json`` is the config dataclass's
+  own JSON and ``params.msgpack`` the flax parameter tree
+  (:mod:`.flax_msgpack`), converted by ``utils/convert.py``.
+
+Every weights file is written through a temporary file, an fsync and a
+rename, so an interrupted save leaves no truncated file behind.
 """
 
 from __future__ import annotations
 
+import io
 import json
 import os
 from typing import Dict
 
 import torch
 
+from . import convert, flax_msgpack, safetensors_io
+
 DIFFUSERS_VERSION = "0.24.0"
 WEIGHTS_NAME = "diffusion_pytorch_model.bin"
+SAFETENSORS_NAME = "diffusion_pytorch_model.safetensors"
+NATIVE_NAME = "params.msgpack"
+LAYOUTS = ("diffusers", "native")
 
 
 def unet_config_to_diffusers(config) -> dict:
@@ -125,17 +141,30 @@ def read_json(path: str) -> dict:
         return json.load(fh)
 
 
+def write_atomic(path: str, data: bytes) -> None:
+    """Write ``data`` through ``path.tmp``, an fsync and a rename (the JAX
+    package's ``_write_atomic``, pipeline.py:666-675)."""
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as fh:
+        fh.write(data)
+        fh.flush()
+        os.fsync(fh.fileno())
+    os.replace(tmp, path)
+
+
+def cpu_state_dict(module: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """``module``'s state on the CPU: floating tensors as f32, integer buffers
+    such as BatchNorm's ``num_batches_tracked`` as they are."""
+    return {k: v.detach().to("cpu", torch.float32 if v.is_floating_point() else v.dtype).contiguous()
+            for k, v in module.state_dict().items()}
+
+
 def save_state_dict(module: torch.nn.Module, model_dir: str) -> None:
-    """Write ``module``'s weights as ``diffusion_pytorch_model.bin`` (on the
-    CPU; floating tensors as f32, integer buffers such as BatchNorm's
-    ``num_batches_tracked`` as they are), through a temporary file and a
-    rename, so an interrupted save leaves no truncated file behind."""
+    """Write ``module``'s weights as ``diffusion_pytorch_model.bin``."""
     os.makedirs(model_dir, exist_ok=True)
-    sd = {k: v.detach().to("cpu", torch.float32 if v.is_floating_point() else v.dtype).contiguous()
-          for k, v in module.state_dict().items()}
-    path = os.path.join(model_dir, WEIGHTS_NAME)
-    torch.save(sd, path + ".tmp")
-    os.replace(path + ".tmp", path)
+    buf = io.BytesIO()
+    torch.save(cpu_state_dict(module), buf)
+    write_atomic(os.path.join(model_dir, WEIGHTS_NAME), buf.getvalue())
 
 
 def linear_from_conv1x1(sd: Dict[str, torch.Tensor], module: torch.nn.Module) -> Dict[str, torch.Tensor]:
@@ -149,17 +178,60 @@ def linear_from_conv1x1(sd: Dict[str, torch.Tensor], module: torch.nn.Module) ->
 
 
 def load_state_dict(model_dir: str) -> Dict[str, torch.Tensor]:
-    """Read ``diffusion_pytorch_model.bin``; raise with the reason when the
-    directory holds only ``.safetensors`` or no weights at all."""
-    path = os.path.join(model_dir, WEIGHTS_NAME)
-    if os.path.exists(path):
-        return torch.load(path, map_location="cpu", weights_only=True)
-    if os.path.exists(os.path.join(model_dir, "diffusion_pytorch_model.safetensors")):
-        raise ValueError(f"{model_dir!r} holds only diffusion_pytorch_model.safetensors; the port reads "
-                         f"{WEIGHTS_NAME} and does not use the safetensors package. Re-save the weights as "
-                         f"{WEIGHTS_NAME} (torch.save of the state dict).")
-    if os.path.exists(os.path.join(model_dir, "params.msgpack")):
-        raise ValueError(f"{model_dir!r} is in the JAX package's native layout (params.msgpack); the port reads "
-                         "the diffusers layout. Convert it with "
-                         "audio_diffusion_tpu.utils.torch_export.save_pipeline_torch.")
-    raise FileNotFoundError(f"no {WEIGHTS_NAME} in {model_dir!r}")
+    """Read ``diffusion_pytorch_model.safetensors``, else ``.bin``, the order
+    of ``torch_import.load_torch_state_dict`` (torch_import.py:31-50)."""
+    st_path, bin_path = os.path.join(model_dir, SAFETENSORS_NAME), os.path.join(model_dir, WEIGHTS_NAME)
+    if os.path.exists(st_path):
+        return {k: torch.from_numpy(v) for k, v in safetensors_io.load_file(st_path).items()}
+    if os.path.exists(bin_path):
+        return torch.load(bin_path, map_location="cpu", weights_only=True)
+    raise FileNotFoundError(f"no {SAFETENSORS_NAME}, {WEIGHTS_NAME} or {NATIVE_NAME} in {model_dir!r}")
+
+
+def is_native(model_dir: str) -> bool:
+    return os.path.exists(os.path.join(model_dir, NATIVE_NAME))
+
+
+def read_unet(unet_dir: str):
+    """(UNetConfig, state dict) of a UNet directory in either layout. A native
+    config carries ``dtype`` and ``fused_groupnorm``; a diffusers one neither."""
+    from ..models.unet2d import UNetConfig
+
+    if is_native(unet_dir):
+        config = UNetConfig.from_pretrained(unet_dir)
+        params = flax_msgpack.load(os.path.join(unet_dir, NATIVE_NAME))
+        return config, convert.to_torch(convert.unet_state_dict(params, config))
+    return unet_config_from_diffusers(read_json(os.path.join(unet_dir, "config.json"))), load_state_dict(unet_dir)
+
+
+def read_vae(vae_dir: str):
+    """(VAEConfig, state dict) of a VAE directory in either layout."""
+    from ..models.vae import VAEConfig
+
+    if is_native(vae_dir):
+        config = VAEConfig.from_pretrained(vae_dir)
+        params = flax_msgpack.load(os.path.join(vae_dir, NATIVE_NAME))
+        return config, convert.to_torch(convert.vae_state_dict(params, config))
+    return vae_config_from_diffusers(read_json(os.path.join(vae_dir, "config.json"))), load_state_dict(vae_dir)
+
+
+def write_unet(unet: torch.nn.Module, unet_dir: str, layout: str) -> None:
+    """``unet``'s config and weights in ``layout`` ("diffusers" or "native")."""
+    if layout == "native":
+        unet.config.save_config(unet_dir)
+        params = convert.unet_params_from_state_dict(cpu_state_dict(unet), unet.config)
+        write_atomic(os.path.join(unet_dir, NATIVE_NAME), flax_msgpack.to_bytes(params))
+    else:
+        write_json(unet_config_to_diffusers(unet.config), os.path.join(unet_dir, "config.json"))
+        save_state_dict(unet, unet_dir)
+
+
+def write_vae(vae: torch.nn.Module, vae_dir: str, layout: str) -> None:
+    """``vae``'s config and weights in ``layout`` ("diffusers" or "native")."""
+    if layout == "native":
+        vae.config.save_config(vae_dir)
+        params = convert.vae_params_from_state_dict(cpu_state_dict(vae), vae.config)
+        write_atomic(os.path.join(vae_dir, NATIVE_NAME), flax_msgpack.to_bytes(params))
+    else:
+        write_json(vae_config_to_diffusers(vae.config), os.path.join(vae_dir, "config.json"))
+        save_state_dict(vae, vae_dir)

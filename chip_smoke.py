@@ -106,12 +106,23 @@ Phases, one line each (plus detail lines):
  15. encoder-train  the full-width AudioEncoder at batch 16 with train=True,
              forward and backward: the running statistics move, encode is
              untouched by .train()
+ 16. native  (group interop; run after [golden]) the [main] pipeline saved in the diffusers layout,
+             the JAX package's native layout (params.msgpack) and the
+             diffusers layout with .safetensors weights; each reloaded
+             (bf16, fused GroupNorm) answers a batch-8 request at 50 steps
+             bitwise the original's, 64 GroupNorm+SiLU and 6 attention
+             launches per denoise step; bytes and walls of each save and load
+ 17. cond-train  (group interop; run last) the conditional recipe (scripts.cond_selectivity_evidence)
+             at full width with 24 VAE and 300 UNet steps: the loss falls,
+             steps/s, peak memory, the selectivity, 44 GroupNorm+SiLU
+             launches per UNet forward of its evaluation and no attention
 Then one JSON line with each kernel's launches (``launches``: the [main]
 requests; ``serve_launches``: the [serve] traffic; ``apps_launches``: the
 [apps] calls; ``cond_launches``: the
 [cond] requests; ``train_launches``: the [train] run's forwards and
 backwards; ``dp_launches``: each [dp] rank's forwards and backwards;
-``shard_launches``: the [shard] calls and requests), error and times, the card's
+``shard_launches``: the [shard] calls and requests; ``interop_launches``:
+each [native] layout's request and the [cond-train] run), error and times, the card's
 name and power limit as nvidia-smi prints them, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without a CUDA device it exits non-zero at once and prints no result.
@@ -184,6 +195,12 @@ SHARD_BATCH = 8
 # this share of its peak, not bitwise (the serving contract is on spectrograms)
 SHARD_AUDIO_BOUND = 1e-2
 ENCODER_TRAIN_BATCH = 16
+# The interop group: [native] reloads the [main] pipeline from each layout and answers this request
+NATIVE_BATCH, NATIVE_SEED = 8, 301
+NATIVE_LAYOUTS = ("diffusers", "native", "safetensors")
+# [cond-train]: the recipe at full width with its 1,200 VAE and 6,000 UNet steps cut to fit the run's time
+COND_TRAIN_VAE_STEPS, COND_TRAIN_UNET_STEPS = 24, 300
+COND_TRAIN_CLASSES, COND_TRAIN_EVAL_BATCH = 4, 8
 
 
 def fail(msg: str) -> None:
@@ -782,7 +799,7 @@ def cross_tier_drift(pipe, seed: int, tier: int) -> dict:
             for b in (1, tier):
                 z = x[:b].contiguous()
                 for i, t in enumerate(schedule.timesteps):
-                    eps = unet(z, torch.full((b,), int(t), device=dev))
+                    eps = unet(z, torch.full((), int(t), device=dev))
                     if i == 0:
                         first = eps[:1].clone()
                     z = pipe.scheduler.step(eps, int(t), z, schedule)
@@ -843,7 +860,7 @@ def tier_layers(pipe, seed: int, tier: int) -> dict:
     x = torch.from_numpy(np.stack([_noise_for_seed(seed + i, h, w, 1) for i in range(tier)])).to(pipe.device)
     t = int(pipe.scheduler.schedule(STEPS).timesteps[0])
     with torch.inference_mode(), Probe():
-        pipe.unet(x, torch.full((tier,), t, device=pipe.device))
+        pipe.unet(x, torch.full((), t, device=pipe.device))
     return {"first": first[0] if first else None, "per_func": per_func}
 
 
@@ -857,7 +874,7 @@ def phase_tier(pipe, card: str) -> dict:
     saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark, torch.backends.cudnn.enabled)
     h, w = pipe.sample_hw
     x = torch.randn((32, h, w, 1), generator=torch.Generator(device="cuda").manual_seed(9), device="cuda")
-    t = torch.full((32,), 500, device="cuda")
+    t = torch.full((), 500, device="cuda")  # one timestep for every row, as the pipeline passes it
     out = {}
     try:
         for name, det, enabled in (("default", False, True), ("cudnn.deterministic", True, True),
@@ -867,8 +884,8 @@ def phase_tier(pipe, card: str) -> dict:
             layers = tier_layers(pipe, 1000, SERVE_TIER)
             drift = cross_tier_drift(pipe, 1000, SERVE_TIER)
             with torch.inference_mode():
-                fwd_ms = {b: (cuda_time_ms(lambda: pipe.unet(x[:b], t[:b]), 10),
-                              graph_time_ms(lambda: pipe.unet(x[:b], t[:b]), 10)) for b in (1, SERVE_TIER, 32)}
+                fwd_ms = {b: (cuda_time_ms(lambda: pipe.unet(x[:b], t), 10),
+                              graph_time_ms(lambda: pipe.unet(x[:b], t), 10)) for b in (1, SERVE_TIER, 32)}
             out[name] = (layers, drift, fwd_ms)
             first = layers["first"]
             print(f"[tier] {name} (cudnn.enabled {enabled}, benchmark False, deterministic {det}; UNet forward ms, "
@@ -1016,7 +1033,7 @@ def phase_layers(pipe, card: str):
     b = 32
     gen = torch.Generator(device="cuda").manual_seed(7)
     x = torch.randn((b, 32, 32, 1), generator=gen, device="cuda")
-    t = torch.full((b,), 500, dtype=torch.long, device="cuda")
+    t = torch.full((), 500, dtype=torch.long, device="cuda")
     sched = pipe.scheduler.schedule(STEPS)
     with torch.inference_mode():
         unet_ms = cuda_time_ms(lambda: pipe.scheduler.step(pipe.unet(x, t), 500, x, sched), 10)
@@ -1331,7 +1348,7 @@ def phase_cond_timing(pipe, encodings, card: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(8)
     h, w = cfg.sample_hw()
     x = torch.randn((b, h, w, 1), generator=gen, device="cuda")
-    t = torch.full((b,), 500, dtype=torch.long, device="cuda")
+    t = torch.full((), 500, dtype=torch.long, device="cuda")
     e = _cond_encoding(encodings, b)[:, None]
     bf16 = torch.bfloat16
     with torch.inference_mode():
@@ -2509,7 +2526,141 @@ def phase_encoder_train(card: str) -> None:
     torch.cuda.empty_cache()
 
 
-PHASE_GROUPS = ("kernels", "main", "apps", "cond", "train", "dp")
+def _dir_bytes(d: Path) -> int:
+    return sum(f.stat().st_size for f in d.rglob("*") if f.is_file())
+
+
+def phase_native(pipe, card: str, root: Path) -> dict:
+    """The [main] pipeline saved in the diffusers layout, in the JAX package's
+    native layout (params.msgpack) and as the diffusers layout with
+    ``.safetensors`` weights (written by the port's writer); each reloaded
+    through ``from_pretrained(dtype="bfloat16", fused_groupnorm=True)`` answers
+    a batch-8 request at 50 steps bitwise the original's, through both kernels
+    (64 GroupNorm+SiLU and 6 attention launches per denoise step). The counts
+    are set to 0 before each reloaded request and read after it."""
+    import shutil
+
+    import torch
+
+    from audio_diffusion_torch.ops import attention as at
+    from audio_diffusion_torch.ops import fused_groupnorm as gn
+    from audio_diffusion_torch.pipelines.pipeline import AudioDiffusionPipeline
+    from audio_diffusion_torch.utils import diffusers_io, safetensors_io
+
+    counters = (gn.group_norm_silu, at.flash_mha)
+
+    def request(p):
+        for c in counters:
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        raw, audio = p(batch_size=NATIVE_BATCH, steps=STEPS,
+                       generator=torch.Generator(device="cuda").manual_seed(NATIVE_SEED), return_arrays=True)
+        torch.cuda.synchronize()
+        return raw, audio, time.perf_counter() - t0, [c.launches for c in counters]
+
+    want_raw, want_audio, want_wall, _ = request(pipe)
+    saves = {}
+    for layout in ("diffusers", "native"):
+        t0 = time.perf_counter()
+        pipe.save_pretrained(str(root / layout), layout=layout)
+        saves[layout] = time.perf_counter() - t0
+    st = root / "safetensors"
+    shutil.copytree(root / "diffusers", st)
+    t0 = time.perf_counter()
+    for sub, module in (("unet", pipe.unet), ("vqvae", pipe.vqvae)):
+        (st / sub / diffusers_io.WEIGHTS_NAME).unlink()
+        safetensors_io.save_file({k: v.numpy() for k, v in diffusers_io.cpu_state_dict(module).items()},
+                                 str(st / sub / diffusers_io.SAFETENSORS_NAME))
+    saves["safetensors"] = time.perf_counter() - t0  # the two weights files alone
+    per_layout = {}
+    for layout in NATIVE_LAYOUTS:
+        t0 = time.perf_counter()
+        loaded = AudioDiffusionPipeline.from_pretrained(str(root / layout), dtype="bfloat16", fused_groupnorm=True,
+                                                        device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        for a, b in ((loaded.unet, pipe.unet), (loaded.vqvae, pipe.vqvae)):
+            sa, sb = a.state_dict(), b.state_dict()
+            if a.config != b.config or sa.keys() != sb.keys() or not all(torch.equal(sa[k], sb[k]) for k in sa):
+                fail(f"[native] {layout}: the reloaded {type(a).__name__} differs from the saved one")
+        raw, audio, wall, launches = request(loaded)
+        if not (torch.equal(raw, want_raw) and torch.equal(audio, want_audio)):
+            fail(f"[native] {layout}: the reloaded pipeline's batch-{NATIVE_BATCH} request differs from the "
+                 f"original's (max uint8 diff {(raw.int() - want_raw.int()).abs().max().item()})")
+        want = [64 * STEPS, 6 * STEPS]
+        if launches != want:
+            fail(f"[native] {layout}: launches (group_norm_silu, flash_mha) {launches}, expected {want}")
+        weights = sum(f.stat().st_size for f in (root / layout).rglob("*")
+                      if f.name in (diffusers_io.WEIGHTS_NAME, diffusers_io.SAFETENSORS_NAME, diffusers_io.NATIVE_NAME))
+        print(f"[native] {layout}: save {saves[layout]:.4f} s, {_dir_bytes(root / layout)} bytes ({weights} of "
+              f"weights), load {load_s:.4f} s; batch-{NATIVE_BATCH} request at {STEPS} steps {wall:.4f} s (the "
+              f"original's {want_wall:.4f} s) bitwise the original's spectrograms and audio; launches "
+              f"group_norm_silu/flash_mha {launches} = {[n // STEPS for n in launches]} per denoise step  [{card}]")
+        per_layout[layout] = dict(zip(("group_norm_silu", "flash_mha"), launches))
+        del loaded
+        torch.cuda.empty_cache()
+    print(f"[native] ok: {len(NATIVE_LAYOUTS)} layouts reloaded bitwise")
+    return per_layout
+
+
+def phase_cond_train(card: str, root: Path) -> dict:
+    """The conditional recipe, ``scripts.cond_selectivity_evidence``, at full
+    width (256x256 mels, the 256 KL-VAE to 32x32 latents, the conditional
+    UNet, batch 16, bf16) with its step counts cut: the 4-class corpus, the
+    AudioEncoder's class encodings, the VAE and UNet trainers, and the
+    selectivity evaluation (4 classes x batch 8 x 50 steps through
+    ``encoding=`` with the GroupNorm+SiLU kernel). The UNet's loss must fall;
+    the GroupNorm+SiLU kernel runs only in the evaluation (training runs
+    torch's GroupNorm: the kernel has no backward), and the recipe's UNet has
+    no SelfAttention2D, so no attention-kernel launch."""
+    import torch
+
+    from audio_diffusion_torch.ops import attention as at
+    from audio_diffusion_torch.ops import fused_groupnorm as gn
+    from audio_diffusion_torch.scripts import cond_selectivity_evidence as recipe
+
+    counters = {"group_norm_silu": gn.group_norm_silu, "flash_mha": at.flash_mha}
+    for c in counters.values():
+        c.launches = 0
+    at.FlashMHA.backwards = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    result = recipe.main(["--work", str(root / "cond_ev"), "--vae_steps", str(COND_TRAIN_VAE_STEPS),
+                          "--unet_steps", str(COND_TRAIN_UNET_STEPS)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = {name: c.launches for name, c in counters.items()}
+    launches["FlashMHA.backward"] = at.FlashMHA.backwards
+    vae, unet = result["vae"], result["unet"]
+    want = {"group_norm_silu": COND_NORMS * STEPS * COND_TRAIN_CLASSES, "flash_mha": 0, "FlashMHA.backward": 0}
+    if launches != want:
+        fail(f"[cond-train] launches {launches}, expected {want}")
+    if vae["steps"] != COND_TRAIN_VAE_STEPS or unet["steps"] != COND_TRAIN_UNET_STEPS:
+        fail(f"[cond-train] trained {vae['steps']} VAE and {unet['steps']} UNet steps")
+    if not unet["loss_last_mean"] < unet["loss_first_mean"]:
+        fail(f"[cond-train] the UNet's loss did not fall: {unet}")
+    nn = [v for r in result["per_class"].values() for v in (r["own_nn_mae"], r["best_other_nn_mae"])]
+    if len(result["per_class"]) != COND_TRAIN_CLASSES or not all(0 < v < 255 for v in nn):
+        fail(f"[cond-train] selectivity report {result['per_class']}")
+    print(f"[cond-train] recipe at full width (the recipe's 1,200 VAE and 6,000 UNet steps cut to "
+          f"{COND_TRAIN_VAE_STEPS} and {COND_TRAIN_UNET_STEPS}): {result['files']} files; VAE {vae['steps']} steps in "
+          f"{vae['seconds']:.4f} s = {vae['steps'] / vae['seconds']:.4f} steps/s (batch 2, a save every epoch of 12 "
+          f"steps included), logged losses {vae['logged_losses']}; UNet {unet['steps']} steps in "
+          f"{unet['seconds']:.4f} s = {unet['steps'] / unet['seconds']:.4f} steps/s (batch 16, bf16, latent caching "
+          f"and the final save included), loss {unet['loss_first']:.4f} -> {unet['loss_last']:.4f}, mean of the "
+          f"first / last {unet['loss_window']} steps {unet['loss_first_mean']:.4f} -> {unet['loss_last_mean']:.4f}; "
+          f"peak {peak:.4f} GiB; whole recipe {wall:.4f} s  [{card}]")
+    print(f"[cond-train] selectivity ({COND_TRAIN_CLASSES} classes x batch {COND_TRAIN_EVAL_BATCH} x {STEPS} steps, "
+          f"own-class vs best other-class nearest-neighbour MAE, uint8): {result['selective_classes']} selective; "
+          + "; ".join(f"{c} {r['own_nn_mae']} vs {r['best_other_nn_mae']}" for c, r in result["per_class"].items())
+          + f"; launches {launches} (GroupNorm+SiLU {COND_NORMS} per UNet forward of the evaluation; the "
+          f"recipe's UNet has no SelfAttention2D)  [{card}]")
+    return launches
+
+
+PHASE_GROUPS = ("kernels", "main", "apps", "cond", "train", "dp", "interop")
 
 
 def main(argv=None) -> int:
@@ -2519,8 +2670,8 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default=",".join(PHASE_GROUPS),
                     help="comma-separated phase groups for a partial run (kernels: gn, attn, attn-sweep, ref; main: "
                          "main, layers, profile, fidelity, serve, tier; apps: apps, prepare, golden; cond; train: "
-                         "attn-grad, train, train-pixel, train-vae; dp: dp, shard, encoder-train); a partial run "
-                         "prints no result lines")
+                         "attn-grad, train, train-pixel, train-vae; dp: dp, shard, encoder-train; interop: native, "
+                         "cond-train); a partial run prints no result lines")
     # one rank of [dp]: the script re-runs itself with these
     for name in ("rank", "world", "init", "device", "backend", "shardings", "root", "tag"):
         ap.add_argument(f"--dp-{name}", default=None, help=argparse.SUPPRESS)
@@ -2562,7 +2713,7 @@ def main(argv=None) -> int:
         at_err, at_t = phase_attention(card)
         phase_attention_sweep(card)
         phase_unet_reference()
-    if "main" in only or "apps" in only:
+    if {"main", "apps", "interop"} & only:
         t0 = time.perf_counter()
         pipe = build_pipeline()
         print(f"[main] built full-width latent-256 pipeline (bf16, fused GroupNorm) in "
@@ -2577,7 +2728,12 @@ def main(argv=None) -> int:
         apps_launches = phase_apps(pipe, card)
         phase_prepare(card)
         phase_golden(card)
-    if "main" in only or "apps" in only:
+    if "interop" in only:
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as d:
+            native_launches = phase_native(pipe, card, Path(d))
+    if {"main", "apps", "interop"} & only:
         del pipe
         torch.cuda.empty_cache()
     if "tier" in only and "main" not in only:
@@ -2613,6 +2769,11 @@ def main(argv=None) -> int:
     if "dp" in only or "shard" in only:
         shard_launches = phase_shard(card)
         phase_encoder_train(card)
+    if "interop" in only:
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as d:
+            cond_train_launches = phase_cond_train(card, Path(d))
     if only != set(PHASE_GROUPS):  # a partial run
         print(f"chip_smoke: partial run of {sorted(only)} done in {time.perf_counter() - t_start:.1f} s; no result")
         return 0
@@ -2626,6 +2787,8 @@ def main(argv=None) -> int:
               "train_launches": {"forward": train_launches["group_norm_silu"], "backward": 0},
               "dp_launches": {run: {"forward": v["group_norm_silu"], "backward": 0} for run, v in dp_launches.items()},
               "shard_launches": shard_launches["group_norm_silu"],
+              "interop_launches": {"native": {k: v["group_norm_silu"] for k, v in native_launches.items()},
+                                   "cond_train": cond_train_launches["group_norm_silu"]},
               "max_abs_err": gn_err["f32"], "bf16_max_ulps": gn_err["bf16_ulps"]}
     at_row = {"name": "flash_mha", "route": "cuda", "source": "audio_diffusion_torch/csrc/mha.cu",
               "replaces": "audio_diffusion_tpu/ops/pallas_attention.py:55", "launches": launches["flash_mha"],
@@ -2636,6 +2799,8 @@ def main(argv=None) -> int:
               "dp_launches": {run: {"forward": v["flash_mha"], "backward": v["FlashMHA.backward"]}
                               for run, v in dp_launches.items()},
               "shard_launches": shard_launches["flash_mha"],
+              "interop_launches": {"native": {k: v["flash_mha"] for k, v in native_launches.items()},
+                                   "cond_train": cond_train_launches["flash_mha"]},
               "grad_ms": grad_t["ms"], "grad_graph_ms": grad_t["graph_ms"], "grad_library_ms": grad_t["library_ms"],
               "grad_library_graph_ms": grad_t["library_graph_ms"], "max_abs_err": at_err["f32"]}
     keys = ("ms", "graph_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_graph_ms")
@@ -2651,6 +2816,10 @@ def main(argv=None) -> int:
         fail(f"the kernels were not launched on the sharded path: {shard_launches}")
     if not all(v > 0 for v in apps_launches.values()):
         fail(f"the kernels were not launched on the convenience layer's path: {apps_launches}")
+    if not all(n > 0 for v in native_launches.values() for n in v.values()):
+        fail(f"the kernels were not launched by the reloaded pipelines: {native_launches}")
+    if not cond_train_launches["group_norm_silu"] > 0:
+        fail(f"the GroupNorm+SiLU kernel was not launched on the conditional recipe's path: {cond_train_launches}")
     print(f"(times per UNet forward at batch 32, bf16: ms by CUDA events around eager calls, host gaps included; "
           f"graph_ms replayed from a CUDA graph; library_ms: torch's F.group_norm + F.silu (two calls) and "
           f"F.scaled_dot_product_attention; grad_*: the attention backward per latent-256 UNet forward at batch 32 "

@@ -1,11 +1,13 @@
 """Port parity of the models: utils/convert.py gives exactly the keys and
 arrays of the JAX package's torch_export, the converted state dicts load
 strict=True, and tiny f32 UNet (fused GroupNorm on, one attention level) and
-VAE agree with the flax modules on the CPU at atol 1e-4 (the torch-twin bound)."""
+VAE agree with the flax modules on the CPU at atol 1e-4 (the torch-twin bound).
+A UNet row's bits do not depend on its batch on one CPU thread."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from audio_diffusion_torch.models import AutoencoderKL as TorchVAE
@@ -28,6 +30,10 @@ UNET_KW = dict(
     fused_groupnorm=True,
 )
 VAE_KW = dict(block_out_channels=(8, 16), layers_per_block=1, norm_num_groups=4, sample_size=16)
+COND_KW = dict(sample_size=(16, 16), block_out_channels=(8, 16),
+               down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
+               up_block_types=("UpBlock2D", "CrossAttnUpBlock2D"),
+               layers_per_block=1, norm_num_groups=4, attention_head_dim=4, cross_attention_dim=12)
 
 
 def random_params(init_fn, seed):
@@ -131,3 +137,28 @@ def test_configs_interchangeable_with_jax(tmp_path):
     assert TorchUNetConfig.from_pretrained(str(tmp_path / "jax")) == TorchUNetConfig(**UNET_KW)
     TorchVAEConfig(**VAE_KW).save_config(str(tmp_path / "torch"))
     assert VAEConfig.from_pretrained(str(tmp_path / "torch")) == VAEConfig(**VAE_KW)
+
+
+@pytest.mark.parametrize("kw", [UNET_KW, COND_KW], ids=["unconditional", "conditional"])
+def test_unet_rows_do_not_depend_on_the_batch(kw):
+    """Batch 4 and two batches of 2 give the same bits on one CPU thread,
+    with one timestep (scalar or repeated per row, as a denoise step) and with
+    per-row timesteps (as training). The time path's Linears run once per
+    distinct timestep: at M=4 against M=2 the CPU GEMM picks another kernel."""
+    cfg = UNetConfig(**kw)
+    unet = TorchUNet(TorchUNetConfig(**kw))
+    unet.load_state_dict(to_torch(unet_state_dict(random_params(UNet2D(cfg).init_params, 6), cfg)), strict=True)
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal((4, 16, 16, 1)).astype(np.float32))
+    ctx = torch.from_numpy(rng.standard_normal((4, 1, 12)).astype(np.float32)) if cfg.is_conditional else None
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with torch.no_grad():
+            for t in (torch.tensor(500), torch.full((4,), 500), torch.tensor([999, 37, 999, 37])):
+                whole = unet(x, t, ctx)
+                halves = [unet(x[i:i + 2], t if t.dim() == 0 else t[i:i + 2], None if ctx is None else ctx[i:i + 2])
+                          for i in (0, 2)]
+                assert torch.equal(whole, torch.cat(halves)), t
+    finally:
+        torch.set_num_threads(threads)

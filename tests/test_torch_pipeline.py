@@ -403,10 +403,25 @@ def test_port_imports_no_jax():
             "audio_diffusion_torch.utils.ldm_import, audio_diffusion_torch.utils.profiling, "
             "audio_diffusion_torch.data.native_audio, audio_diffusion_torch.data.prepare, "
             "audio_diffusion_torch.scripts.audio_to_images, audio_diffusion_torch.scripts.encode_audio, "
-            "audio_diffusion_torch.scripts.convert_checkpoint, audio_diffusion_torch.parallel; "
-            "bad = [m for m in ('jax', 'flax', 'optax', 'audio_diffusion_tpu') if m in sys.modules]; "
+            "audio_diffusion_torch.scripts.convert_checkpoint, audio_diffusion_torch.parallel, "
+            "audio_diffusion_torch.utils.flax_msgpack, audio_diffusion_torch.utils.safetensors_io, "
+            "audio_diffusion_torch.scripts.make_audio, audio_diffusion_torch.scripts.cond_selectivity_evidence, "
+            "audio_diffusion_torch.examples.test_mel, audio_diffusion_torch.examples.test_model, "
+            "audio_diffusion_torch.examples.test_vae, audio_diffusion_torch.examples.train_model, "
+            "audio_diffusion_torch.examples.latent_diffusion, audio_diffusion_torch.examples.conditional_generation; "
+            "bad = [m for m in ('jax', 'flax', 'optax', 'msgpack', 'safetensors', 'audio_diffusion_tpu') "
+            "if m in sys.modules]; "
             "assert not bad, bad")
     env = {**os.environ, "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH", "")}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
+    # and no import of them anywhere in the package's sources or chip_smoke.py, inside functions too
+    import re
+
+    banned = re.compile(r"^\s*(?:import|from)\s+(jax|flax|optax|msgpack|safetensors|audio_diffusion_tpu)\b", re.M)
+    sources = [os.path.join(REPO, "chip_smoke.py")] + [
+        os.path.join(root, f) for root, _, files in os.walk(os.path.join(REPO, "audio_diffusion_torch"))
+        for f in files if f.endswith(".py")]
+    found = {p: m.group(1) for p in sources for m in [banned.search(open(p).read())] if m}
+    assert not found, found
