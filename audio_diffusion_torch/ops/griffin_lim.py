@@ -20,14 +20,17 @@ from .stft import frame, istft, overlap_add_normalize, stft, windowed_dft_matric
 
 
 @lru_cache(maxsize=16)
-def _nnls_constants(key: tuple) -> tuple:
-    """Pseudo-inverse (librosa's clipped-lstsq initial point) and the
-    Lipschitz constant of the NNLS gradient, in float64 then f32."""
+def _nnls_constants(key: tuple, device: torch.device) -> tuple:
+    """The basis and its pseudo-inverse (librosa's clipped-lstsq initial
+    point) as f32 tensors on ``device``, and the Lipschitz constant of the
+    NNLS gradient; computed in float64 then f32, and copied to the device
+    once per basis and device, never per call (a CUDA graph cannot capture a
+    pageable host-to-device copy)."""
     basis = np.frombuffer(key[0], dtype=np.float32).reshape(key[1])
     pinv = np.linalg.pinv(basis.astype(np.float64)).astype(np.float32)
     # Largest eigenvalue of B^T B == squared largest singular value of B.
     smax = np.linalg.svd(basis.astype(np.float64), compute_uv=False)[0]
-    return pinv, float(smax**2)
+    return torch.as_tensor(basis.copy(), device=device), torch.as_tensor(pinv, device=device), float(smax**2)
 
 
 def nnls(basis: np.ndarray, targets: torch.Tensor, n_iter: int = 80) -> torch.Tensor:
@@ -40,9 +43,7 @@ def nnls(basis: np.ndarray, targets: torch.Tensor, n_iter: int = 80) -> torch.Te
         (..., n_freq) non-negative linear-power vectors.
     """
     basis = np.asarray(basis, dtype=np.float32)
-    pinv_np, lipschitz = _nnls_constants((basis.tobytes(), basis.shape))
-    B = torch.as_tensor(basis, device=targets.device)
-    pinv = torch.as_tensor(pinv_np, device=targets.device)
+    B, pinv, lipschitz = _nnls_constants((basis.tobytes(), basis.shape), targets.device)
     step = np.float32(1.0 / lipschitz)
 
     x = torch.clamp(targets @ pinv.T, min=0.0)

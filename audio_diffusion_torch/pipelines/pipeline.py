@@ -1,13 +1,24 @@
 """AudioDiffusionPipeline (port of ``audio_diffusion_tpu/pipelines/pipeline.py``).
 
-The JAX package compiles generation into one program
-(``_fused_generate_fn``, pipeline.py:317-401). Here the same stages run
-eagerly on one device, in the same order:
+A request runs these stages, in this order:
 
     noise -> [mel forward of the input audio -> [VAE encode] -> re-noise at
     start_step] -> DDIM/DDPM loop of UNet + scheduler step [+ column-mask
     overwrite] -> [VAE decode of latents / LATENT_SCALE] -> uint8
     postprocess -> NNLS + Griffin-Lim -> [int16 PCM]
+
+``pipe.fuse`` (default True, as in the JAX package) runs them as one program
+per request signature, the counterpart of ``_fused_generate_fn``
+(pipeline.py:317-401): on a CUDA device it is captured once as a CUDA graph,
+cached in ``pipe._compiled`` under its signature and replayed on every later
+call with that signature; on the CPU the same program function runs without
+a capture. Every random draw is made outside the program, in the eager order
+(noise, the posterior eps of one broadcast clip, the step noises, the
+Griffin-Lim phase), and copied into the program's static inputs, so the two
+paths see the same numbers. ``fuse = False`` runs the stages eagerly: the
+reference for the graph, and the path for profilers and module hooks.
+``return_images_only=True`` is always eager, as in the JAX package
+(pipeline.py:452). A failed capture or replay raises; nothing falls back.
 
 There is no CPU fallback: the pipeline runs on the device it is given, and on
 a CUDA device every kernel wrapper launches its kernel or raises.
@@ -16,9 +27,10 @@ a CUDA device every kernel wrapper launches its kernel or raises.
 axis (the JAX ``shard``, pipeline.py:112-124): one replica per device, every
 batch-level random draw made on the pipeline's own device in the unsharded
 order, then contiguous rows per replica through the draw-injection
-arguments, and the rows gathered back in order. The result is the unsharded
-call's wherever a row does not depend on its batch (the CPU; on the card,
-with cuDNN off, as the server runs batches).
+arguments, and the rows gathered back in order; each replica captures and
+replays its own programs. The result is the unsharded call's wherever a row
+does not depend on its batch (the CPU; on the card, with cuDNN off, as the
+server runs batches).
 
 The per-step mask overwrite uses the noise level of the *current* timestep
 ``t`` although the sample was just stepped to ``t_prev``: the reference's
@@ -31,6 +43,8 @@ import contextlib
 import dataclasses
 import math
 import os
+import threading
+import time
 from typing import List, Optional, Sequence, Union
 
 import numpy as np
@@ -40,12 +54,20 @@ from PIL import Image
 from ..mel import Mel
 from ..models.unet2d import UNet2D
 from ..models.vae import AutoencoderKL
+from ..ops import attention, fused_groupnorm
 from ..schedulers import DDIMScheduler, DDPMScheduler, load_scheduler, save_scheduler
 from ..schedulers.common import step_noises
 from ..utils import diffusers_io
 from ..utils.hub import resolve_pretrained
 
 LATENT_SCALE = 0.18215  # SD latent scaling (pipeline.py:47)
+# The step noise pre-drawn for one replay is bounded: a signature whose
+# stochastic steps need more (DDPM at pixel-256, batch 32, 1,000 steps: 8.4 GB)
+# is captured as consecutive graphs of at most this many bytes of steps each,
+# with each graph's draws made just before its replay.
+STEP_NOISE_BYTES = 1 << 30
+# The kernel wrappers whose launch counters a replay credits.
+LAUNCH_COUNTERS = (fused_groupnorm.group_norm_silu, attention.flash_mha)
 
 
 def postprocess_images(x: torch.Tensor) -> torch.Tensor:
@@ -76,6 +98,39 @@ class PipelineOutput:
     raw_images: np.ndarray  # (B, H, W) uint8
 
 
+@dataclasses.dataclass(eq=False)
+class FusedProgram:
+    """One request signature's program (the counterpart of a jitted
+    ``_fused_generate_fn``): its static inputs, the denoise steps split into
+    ``segments`` of at most :data:`STEP_NOISE_BYTES` of step noise (one
+    segment unless a DDPM-scale request needs more), and on a CUDA device one
+    captured graph per segment.
+
+    ``launches[j]``: what one replay of graph j launches, per counter of
+    :data:`LAUNCH_COUNTERS`, recorded at capture and credited to the
+    counters on every replay (a replay calls no wrapper). ``warmup_seconds``
+    (the eager pass before the capture), ``capture_seconds`` and
+    ``pool_bytes`` (the growth of the pipeline's graph memory pool while
+    capturing) describe the capture."""
+
+    key: tuple  # the signature (AudioDiffusionPipeline.signature)
+    schedule: object
+    timesteps: np.ndarray  # the denoise steps, schedule.timesteps[start_step:]
+    segments: list  # [(i0, i1)] ranges of timesteps, one graph each
+    input_mode: str  # "none" | "batched" | "single"
+    t0: Optional[int]  # the re-noise timestep of audio-to-audio
+    eta: float
+    pcm16: bool
+    frozen: Optional[torch.Tensor]  # the columns the mask freezes, NHWC
+    inputs: dict  # name -> static input tensor
+    state: dict = dataclasses.field(default_factory=dict)  # carried between segments; "raw", "audio" at the end
+    graphs: Optional[list] = None
+    launches: Optional[list] = None
+    warmup_seconds: float = 0.0
+    capture_seconds: float = 0.0
+    pool_bytes: int = 0
+
+
 class AudioDiffusionPipeline:
     """Composes {unet, scheduler, mel, optional vqvae} on one device."""
 
@@ -94,6 +149,13 @@ class AudioDiffusionPipeline:
         self.scheduler = scheduler
         self.mesh = None
         self._replicas = None
+        # Run eligible calls as one program per request signature (module docstring).
+        self.fuse = True
+        self._compiled = {}  # signature -> FusedProgram
+        self._lock = threading.Lock()  # one fused request at a time: the programs share one memory pool
+        self._pool = None  # the graph memory pool every capture of this pipeline shares
+        self._capture_stream = None
+        self._done = None  # an event after the last fused request's outputs were cloned
 
     def shard(self, mesh) -> "AudioDiffusionPipeline":
         """Split inference over ``mesh``'s ``data`` axis (``parallel.make_mesh``):
@@ -270,8 +332,8 @@ class AudioDiffusionPipeline:
 
     def _call_one(self, *, batch_size, audio_file, raw_audio, slice, start_step, steps, generator, mask_start_secs,
                   mask_end_secs, step_generator, eta, noise, encoding, return_dict, return_images_only, return_arrays,
-                  pcm16, gl_phase, posterior_eps, step_noise):
-        """``__call__`` on this pipeline's device alone."""
+                  pcm16, gl_phase, posterior_eps, step_noise, fuse=None):
+        """``__call__`` on this pipeline's device alone; ``fuse`` None takes ``self.fuse``."""
         steps = steps or self.get_default_steps()
         if start_step >= steps:
             raise ValueError(
@@ -295,9 +357,9 @@ class AudioDiffusionPipeline:
             raise ValueError(f"per-row step_generator batch ({len(step_generator)}) must equal the "
                              f"generation batch ({rows}).")
 
-        images = input_images = noise
         has_input = audio_file is not None or raw_audio is not None
-        frozen = None
+        slices = batched = t0 = None
+        mask_start = mask_end = 0
         schedule = self.scheduler.schedule(steps)
         if has_input:
             slices, batched = self._input_slices(audio_file, raw_audio, slice)
@@ -305,43 +367,231 @@ class AudioDiffusionPipeline:
                 raise ValueError(f"raw_audio batch ({slices.shape[0]}) must equal the generation batch ({rows}); "
                                  "pass matching noise= or batch_size=.")
             t0 = int(schedule.timesteps[start_step - 1]) if start_step > 0 else None
-            images, input_images = self._prep_inputs(slices, noise, batched, t0, generator, posterior_eps)
             # Mask pixels in model-sample space (pipeline.py:486-489).
             pixels_per_second = w * self.mel.get_sample_rate() / self.mel.x_res / self.mel.hop_length
             mask_start = int(mask_start_secs * pixels_per_second)
             mask_end = int(mask_end_secs * pixels_per_second)
-            if mask_start > 0 or mask_end > 0:  # the columns the mask freezes, NHWC
-                cols = torch.arange(w, device=self.device)
-                frozen = ((cols < mask_start) | (cols >= w - mask_end))[None, None, :, None]
-
         timesteps = schedule.timesteps[start_step:]
-        is_ddim = isinstance(self.scheduler, DDIMScheduler)
-        stochastic = not is_ddim or eta > 0
-        noises = (step_noises(tuple(images.shape), len(timesteps), self.device,
-                              step_generator if step_generator is not None else generator, step_noise)
+        stochastic = not isinstance(self.scheduler, DDIMScheduler) or eta > 0
+        step_source = step_generator if step_generator is not None else generator
+
+        if (self.fuse if fuse is None else fuse) and not return_images_only:
+            input_mode = "none" if not has_input else "batched" if batched else "single"
+            if input_mode == "single" and self.is_latent and posterior_eps is None:
+                # the draw DiagonalGaussian.sample makes: f32, like the posterior's mean
+                lh, lw = self.vqvae.config.latent_hw(self.mel.y_res, self.mel.x_res)
+                posterior_eps = torch.randn((1, lh, lw, self.vqvae.config.latent_channels), generator=generator,
+                                            device=generator.device)
+            key = self.signature(steps, eta, rows, enc, pcm16, start_step, mask_start, mask_end, input_mode)
+            noises = (step_noises(tuple(noise.shape), len(timesteps), self.device, step_source, step_noise)
+                      if stochastic else None)
+            with self._lock:
+                prog = self._compiled.get(key) or self._new_program(
+                    key, schedule, timesteps, input_mode, t0, eta, pcm16, mask_start, mask_end, stochastic,
+                    noise, slices, enc)
+                raw, audio = self._run_program(prog, noise, slices, enc, posterior_eps, noises, gl_phase, generator)
+            return self._output(raw, audio, return_dict, return_arrays)
+
+        images = input_images = noise
+        if has_input:
+            images, input_images = self._prep_inputs(slices, noise, batched, t0, generator, posterior_eps)
+        noises = (step_noises(tuple(images.shape), len(timesteps), self.device, step_source, step_noise)
                   if stochastic else None)
-        x = images
+        x = self._denoise(images, input_images, noise, enc, schedule, timesteps, eta,
+                          self._frozen(mask_start, mask_end), noises)
+        raw = self._decode(x)
+        if return_images_only:
+            return raw.cpu().numpy()
+        return self._output(raw, self._audio(raw, generator, gl_phase, pcm16), return_dict, return_arrays)
+
+    # ------------------------------------------------------------------ stages
+    def _frozen(self, mask_start: int, mask_end: int) -> Optional[torch.Tensor]:
+        """The columns the mask freezes, NHWC, or None without a mask."""
+        if mask_start <= 0 and mask_end <= 0:
+            return None
+        w = self.sample_hw[1]
+        cols = torch.arange(w, device=self.device)
+        return ((cols < mask_start) | (cols >= w - mask_end))[None, None, :, None]
+
+    def _denoise(self, x, input_images, noise, enc, schedule, timesteps, eta, frozen, noises) -> torch.Tensor:
+        """The denoise loop over ``timesteps``; ``noises`` yields each
+        stochastic step's variance noise (None for deterministic DDIM)."""
+        is_ddim = isinstance(self.scheduler, DDIMScheduler)
         for t in timesteps:
             t = int(t)
             model_output = self.unet(x, torch.full((), t, dtype=torch.int64, device=self.device), enc)
-            noise_t = next(noises) if stochastic else None
+            noise_t = next(noises) if noises is not None else None
             if is_ddim:
                 x = self.scheduler.step(model_output, t, x, schedule, eta=float(eta), noise=noise_t)
             else:
                 x = self.scheduler.step(model_output, t, x, schedule, noise=noise_t)
             if frozen is not None:
                 x = torch.where(frozen, self.scheduler.add_noise(input_images, noise, t), x)
+        return x
 
+    def _decode(self, x: torch.Tensor) -> torch.Tensor:
+        """[VAE decode] -> (B, H, W) uint8 spectrograms."""
         if self.is_latent:
             x = self.vqvae.decode(x / LATENT_SCALE)
-        raw = postprocess_images(x)
-        if return_images_only:
-            return raw.cpu().numpy()
+        return postprocess_images(x)
 
-        audio = self.mel.images_to_audio(raw, generator=generator, phase=gl_phase)
-        if pcm16:
-            audio = pcm16_quantize(audio)
-        return self._output(raw, audio, return_dict, return_arrays)
+    def _audio(self, raw: torch.Tensor, generator, phase, pcm16: bool) -> torch.Tensor:
+        """NNLS + Griffin-Lim from ``phase``, or a phase drawn from ``generator``; [int16 PCM]."""
+        audio = self.mel.images_to_audio(raw, generator=generator, phase=phase)
+        return pcm16_quantize(audio) if pcm16 else audio
+
+    # ----------------------------------------------------------- fused program
+    def signature(self, steps, eta, rows, enc, pcm16, start_step, mask_start, mask_end, input_mode) -> tuple:
+        """The key of a request's program in ``self._compiled``: the JAX
+        package's (pipeline.py:343-345) with the encoding's (seq, dim) for its
+        has-encoding flag, plus what else a captured graph fixes: the
+        scheduler (its type and config), the UNet's and VAE's compute dtypes,
+        and the backend flags that choose kernels (cuDNN on or off, as the
+        batcher switches it, and TF32), and last the UNet, VAE and Mel
+        objects themselves (compared by identity): a graph reads their
+        tensors where they lay at capture, so a module put in another's place
+        needs a program of its own. JAX's "noise generated" and "step key
+        derived" flags are left out: every draw is made outside the program
+        here, so they select the same program."""
+        return ("fused", steps, float(eta), rows, None if enc is None else tuple(enc.shape[1:]), pcm16, start_step,
+                mask_start, mask_end, input_mode, self.scheduler, self.unet.config.dtype,
+                self.vqvae.config.dtype if self.vqvae is not None else None, torch.backends.cudnn.enabled,
+                torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32, self.unet, self.vqvae,
+                self.mel)
+
+    def _new_program(self, key, schedule, timesteps, input_mode, t0, eta, pcm16, mask_start, mask_end, stochastic,
+                     noise, slices, enc) -> FusedProgram:
+        """A program's static inputs, shaped like this request's; on a CUDA
+        device its graphs are captured by the first :meth:`_run_program`."""
+        def buf(shape):
+            return torch.zeros(shape, dtype=torch.float32, device=self.device)
+
+        n = len(timesteps)  # >= 1: start_step < steps
+        span = min(n, max(1, STEP_NOISE_BYTES // (noise.numel() * 4))) if stochastic else n
+        inputs = {"noise": buf(noise.shape),
+                  "gl_phase": buf((noise.shape[0], self.mel.x_res, self.mel.n_fft // 2 + 1))}
+        if stochastic:
+            inputs["step_noise"] = buf((span, *noise.shape))
+        if input_mode != "none":
+            inputs["slices"] = buf(slices.shape)
+        if input_mode == "single" and self.is_latent:
+            lh, lw = self.vqvae.config.latent_hw(self.mel.y_res, self.mel.x_res)
+            inputs["posterior_eps"] = buf((1, lh, lw, self.vqvae.config.latent_channels))
+        if enc is not None:
+            inputs["enc"] = buf(enc.shape)
+        prog = FusedProgram(key, schedule, timesteps, [(i, min(i + span, n)) for i in range(0, n, span)],
+                            input_mode, t0, float(eta), pcm16, self._frozen(mask_start, mask_end), inputs)
+        if self.device.type != "cuda":  # on a CUDA device, cached once its capture succeeds
+            self._compiled[key] = prog
+        return prog
+
+    def _segment(self, prog: FusedProgram, j: int) -> None:
+        """Segment ``j`` of the program, on its static inputs: [the input
+        prep,] its denoise steps [, then decode, postprocess and audio]."""
+        inp, state = prog.inputs, prog.state
+        i0, i1 = prog.segments[j]
+        if j == 0:
+            x = input_images = inp["noise"]
+            if prog.input_mode != "none":
+                x, input_images = self._prep_inputs(inp["slices"], inp["noise"], prog.input_mode == "batched",
+                                                    prog.t0, None, inp.get("posterior_eps"))
+            state["input_images"] = input_images
+        else:
+            x = state["x"]
+        noises = iter(inp["step_noise"][: i1 - i0]) if "step_noise" in inp else None
+        x = self._denoise(x, state["input_images"], inp["noise"], inp.get("enc"), prog.schedule,
+                          prog.timesteps[i0:i1], prog.eta, prog.frozen, noises)
+        if j < len(prog.segments) - 1:
+            state["x"] = x
+        else:
+            state["raw"] = self._decode(x)
+            state["audio"] = self._audio(state["raw"], None, inp["gl_phase"], prog.pcm16)
+
+    def _capture(self, prog: FusedProgram) -> None:
+        """Warm the program up eagerly on a side stream (cuDNN and cuBLAS
+        heuristics, cuFFT plans, the kernels' build, the cached device
+        constants), then capture each segment as a CUDA graph into the
+        pipeline's one memory pool. Replays are serialised (``self._lock``,
+        ``self._done``) and their outputs cloned before the next one, so
+        programs may share the pool. ``capture_error_mode="thread_local"``:
+        the batcher's finisher and copy stream work on other threads while a
+        pipeline captures. A capture records kernels and launches none, so
+        the counters' calls made while capturing are taken back and become
+        the per-replay credit."""
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(self.device)
+            self._pool = torch.cuda.graph_pool_handle()
+        stream = self._capture_stream
+        t0 = time.perf_counter()
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(stream):
+            for j in range(len(prog.segments)):
+                self._segment(prog, j)
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        torch.cuda.synchronize(self.device)
+        prog.warmup_seconds = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(self.device)
+        t0 = time.perf_counter()
+        graphs, launches = [], []
+        try:
+            for j in range(len(prog.segments)):
+                graph = torch.cuda.CUDAGraph()
+                before = [c.launches for c in LAUNCH_COUNTERS]
+                try:
+                    with torch.cuda.graph(graph, pool=self._pool, stream=stream, capture_error_mode="thread_local"):
+                        self._segment(prog, j)
+                finally:
+                    delta = tuple(c.launches - b for c, b in zip(LAUNCH_COUNTERS, before))
+                    for c, d in zip(LAUNCH_COUNTERS, delta):
+                        c.launches -= d
+                graphs.append(graph)
+                launches.append(delta)
+        except Exception:
+            prog.state.clear()
+            raise
+        prog.capture_seconds = time.perf_counter() - t0
+        prog.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
+        prog.graphs, prog.launches = graphs, launches
+        self._compiled[prog.key] = prog
+
+    def _run_program(self, prog: FusedProgram, noise, slices, enc, posterior_eps, noises, gl_phase, generator):
+        """Copy the request into the program's static inputs, [capture,] then
+        run or replay each segment, filling each one's step noise just before
+        it and the Griffin-Lim phase before the last: the draws keep the
+        eager order. Returns clones of the outputs, out of the graph pool."""
+        if self._done is not None:
+            torch.cuda.current_stream(self.device).wait_event(self._done)  # the last replay's clones are done
+        inp = prog.inputs
+        inp["noise"].copy_(noise)
+        if slices is not None:
+            inp["slices"].copy_(torch.from_numpy(slices))
+        if enc is not None:
+            inp["enc"].copy_(enc)
+        if "posterior_eps" in inp:
+            inp["posterior_eps"].copy_(posterior_eps)
+        if self.device.type == "cuda" and prog.graphs is None:
+            self._capture(prog)
+        last = len(prog.segments) - 1
+        for j, (i0, i1) in enumerate(prog.segments):
+            for k in range(i1 - i0 if noises is not None else 0):
+                inp["step_noise"][k].copy_(next(noises))
+            if j == last:
+                if gl_phase is None:  # the draw Griffin-Lim makes
+                    gl_phase = 2.0 * math.pi * torch.rand(inp["gl_phase"].shape, generator=generator,
+                                                          device=generator.device)
+                inp["gl_phase"].copy_(gl_phase)
+            if prog.graphs is None:
+                self._segment(prog, j)
+            else:
+                prog.graphs[j].replay()
+                for c, d in zip(LAUNCH_COUNTERS, prog.launches[j]):
+                    c.launches += d
+        raw, audio = prog.state["raw"].clone(), prog.state["audio"].clone()
+        if self.device.type == "cuda":
+            self._done = torch.cuda.Event()
+            self._done.record(torch.cuda.current_stream(self.device))
+        return raw, audio
 
     def _output(self, raw: torch.Tensor, audio: torch.Tensor, return_dict: bool, return_arrays: bool):
         if return_arrays:
@@ -410,7 +660,7 @@ class AudioDiffusionPipeline:
                     batch_size=None, generator=None, step_generator=None, noise=x, encoding=e, step_noise=sn,
                     gl_phase=ph, raw_audio=ra, audio_file=audio_file, slice=slice, start_step=start_step,
                     steps=steps, eta=eta, posterior_eps=posterior_eps, return_images_only=return_images_only,
-                    return_arrays=True, return_dict=True, pcm16=pcm16, **rest))
+                    return_arrays=True, return_dict=True, pcm16=pcm16, fuse=self.fuse, **rest))
         if return_images_only:
             return np.concatenate(parts)
         raw = torch.cat([p[0].to(self.device) for p in parts])

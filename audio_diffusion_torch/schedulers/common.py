@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from functools import lru_cache
 from typing import Iterator, NamedTuple, Sequence, Union
 
 import numpy as np
@@ -122,9 +123,20 @@ class SchedulerConfig(ConfigMixin):
     config_name = "scheduler_config.json"
 
 
+@lru_cache(maxsize=16)
+def _device_table(table_bytes: bytes, device: torch.device) -> torch.Tensor:
+    """An f32 table on ``device``, copied from the host once per table and
+    device: a pageable host-to-device copy on every call would stall the
+    stream and cannot be captured in a CUDA graph."""
+    return torch.frombuffer(bytearray(table_bytes), dtype=torch.float32).to(device)
+
+
 def _alpha_at(alphas_cumprod: np.ndarray, sample: torch.Tensor, t) -> torch.Tensor:
-    """``alphas_cumprod[t]`` on the sample's device, shaped to broadcast over it."""
-    a = torch.as_tensor(alphas_cumprod, device=sample.device)[torch.as_tensor(t, device=sample.device)]
+    """``alphas_cumprod[t]`` on the sample's device, shaped to broadcast over
+    it. An int ``t`` indexes the cached device table on the host side (a
+    view, no copy); a tensor ``t`` gathers on the device."""
+    table = _device_table(np.asarray(alphas_cumprod, dtype=np.float32).tobytes(), sample.device)
+    a = table[int(t)] if isinstance(t, (int, np.integer)) else table[torch.as_tensor(t, device=sample.device)]
     while a.dim() < sample.dim():
         a = a[..., None]
     return a

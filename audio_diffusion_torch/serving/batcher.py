@@ -4,7 +4,8 @@
   for a sharded pipeline, ``pipe.shard(mesh)``, multiples of the mesh's
   data-axis size), so the device only ever sees ``len(tiers)`` batch shapes, each warmed at
   startup by :meth:`DynamicBatcher.warmup` (kernel libraries, cuDNN
-  algorithm choice, the caching allocator). The default "snap" policy
+  algorithm choice, the caching allocator, and the capture of each fused
+  program's CUDA graph). The default "snap" policy
   dispatches the largest tier <= queue depth and leaves the rest queued, so
   at load every device row is a real request.
 * **Per-request determinism.** A request's initial noise comes from ITS seed
@@ -302,7 +303,9 @@ class DynamicBatcher:
     def _call_pipe(self, **kwargs):
         """One pipeline call; on a CUDA device with cuDNN off for its length
         (the module docstring's per-request determinism). Every kernel of the
-        call is chosen before it returns, so the flag is restored at once."""
+        call is chosen before it returns, so the flag is restored at once; the
+        flag is part of a fused program's signature, so a batch replays a
+        graph captured with cuDNN off."""
         if self.device.type != "cuda":
             return self.pipe(**kwargs)
         enabled = torch.backends.cudnn.enabled
@@ -315,7 +318,9 @@ class DynamicBatcher:
     def warmup(self) -> None:
         """Run every (tier, steps, eta, start_step) the server accepts once, up
         front, with the same arguments a live batch passes (per-row step
-        generators included), so live traffic meets no first-call cost."""
+        generators included), so live traffic meets no first-call cost: on
+        the pipeline's fused path this captures every program a live batch
+        replays, and none is captured inside the serving window."""
         h, w = self.pipe.sample_hw
         c = self.pipe.unet.config.in_channels
         cross_dim = self.pipe.unet.config.cross_attention_dim

@@ -25,8 +25,18 @@ Phases, one line each (plus detail lines):
              byte, tensor and exponential floors (attn_bound)
   4. main    the full-width latent-256 pipeline (bf16, fused GroupNorm,
              seeded random weights) answers batch-1, -8 and -32 requests of
-             50 DDIM steps through ``AudioDiffusionPipeline.__call__``; the
-             kernels' launch counters must show the path went through them
+             50 DDIM steps through ``AudioDiffusionPipeline.__call__`` on its
+             default fused path (each request signature one CUDA graph,
+             captured by the first call and replayed after); the kernels'
+             launch counters (credited per replay) must show the path went
+             through them. [layers] and [profile] read the eager path
+             (``pipe.fuse = False``). [fused]: batches 1, 8 and 32 eager and
+             from the graph: spectrograms bitwise, audio bitwise (or within 1
+             int16 LSB, the reason printed), 64 and 6 launches per denoise
+             step on both paths, walls, peak memory, each program's capture
+             time and graph-pool bytes, the credited launches of one replay
+             against the kernels torch.profiler counts in it, and the device
+             idle share of a graph request beside the eager one
   5. fidelity  Griffin-Lim round trip and bf16-vs-f32 VAE round trip gates
   6. serve   the same pipeline saved with ``save_pretrained`` (diffusers
              layout), loaded through ``serving.make_server`` (bf16, fused
@@ -37,7 +47,9 @@ Phases, one line each (plus detail lines):
              of every served batch; wav and json PCM identical; a seed bitwise
              the same with other companions in its tier and, at eta 0, at
              tier 1 and tier 8 (the batcher runs batches with cuDNN off);
-             /healthz figures. [tier]: every torch call of a batch-8 UNet
+             /healthz figures; warmup captures every program the traffic
+             replays (no capture after it). [tier] (the eager UNet,
+             ``fuse = False``): every torch call of a batch-8 UNet
              forward re-run on row 0 alone, with cuDNN's defaults, with
              cudnn.deterministic and with cuDNN off: the calls whose row
              depends on the batch, the drift they cause, the forward's time
@@ -141,6 +153,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 STEPS = 50
 REQUESTS = ((1, 101), (8, 102), (32, 103))  # (batch, generator seed)
+FUSED_PROFILES = 3  # [fused]: profiled replays allowed to see the credited launches (see phase_fused)
 GL_BOUND = 2.41 + 1.1  # bench.py:212-214, 256x256 hop 512
 VAE_BOUND = 2.0  # bench.py:231-232, uint8 MAE
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense): the bounds' denominators.
@@ -637,6 +650,8 @@ def phase_main(pipe, card: str):
              return_arrays=True)
         torch.cuda.synchronize()
         warm[b] = time.perf_counter() - t0
+    if len(pipe._compiled) != len(REQUESTS):
+        fail(f"[main] {len(pipe._compiled)} programs captured for {len(REQUESTS)} request signatures")
 
     for c in counters:
         c.launches = 0
@@ -661,7 +676,8 @@ def phase_main(pipe, card: str):
         want = [64 * STEPS, 6 * STEPS]
         if delta != want:
             fail(f"request b={b}: launches (group_norm_silu, flash_mha) {delta}, expected {want}")
-        print(f"[main] request batch={b}: {wall:.4f} s wall (warm-up call {warm[b]:.4f} s), "
+        print(f"[main] request batch={b}: {wall:.4f} s wall, a graph replay (warm-up call {warm[b]:.4f} s: an "
+              f"eager warm-up, the capture and a replay), "
               f"{b / wall:.4f} samples/s, "
               f"launches group_norm_silu/flash_mha {delta}, audio {tuple(pcm_np.shape)} int16 peak "
               f"{int(np.abs(pcm_np.astype(np.int32)).max())}, spectrogram std {raw_np.std():.3f}  [{card}]")
@@ -872,6 +888,7 @@ def phase_tier(pipe, card: str) -> dict:
     import torch
 
     saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark, torch.backends.cudnn.enabled)
+    pipe.fuse = False  # the probes call the eager UNet and hook every torch call
     h, w = pipe.sample_hw
     x = torch.randn((32, h, w, 1), generator=torch.Generator(device="cuda").manual_seed(9), device="cuda")
     t = torch.full((), 500, device="cuda")  # one timestep for every row, as the pipeline passes it
@@ -888,7 +905,8 @@ def phase_tier(pipe, card: str) -> dict:
                               graph_time_ms(lambda: pipe.unet(x[:b], t), 10)) for b in (1, SERVE_TIER, 32)}
             out[name] = (layers, drift, fwd_ms)
             first = layers["first"]
-            print(f"[tier] {name} (cudnn.enabled {enabled}, benchmark False, deterministic {det}; UNet forward ms, "
+            print(f"[tier] {name} (the eager UNet, pipe.fuse = False; cudnn.enabled {enabled}, benchmark False, "
+                  f"deterministic {det}; UNet forward ms, "
                   "events / graph, at batch " + ", ".join(f"{b}: {e:.4f} / {g:.4f}" for b, (e, g) in fwd_ms.items())
                   + "): first call whose row 0 differs "
                   f"alone and in batch {SERVE_TIER}: {first[0] + f' (max diff {first[1]:.4g})' if first else 'none'}; "
@@ -899,6 +917,7 @@ def phase_tier(pipe, card: str) -> dict:
                   + "; end to end: " + "; ".join(f"{k} {d:.4g}" for k, (d, _) in drift.items()) + f"  [{card}]")
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark, torch.backends.cudnn.enabled = saved
+        pipe.fuse = True
     return out
 
 
@@ -939,9 +958,16 @@ def phase_serve(pipe, card: str):
     t0 = time.perf_counter()
     server.batcher.warmup()
     t_warm = time.perf_counter() - t0
+    warmed = set(served._compiled)
+    n_want = len(server.batcher.tiers) * 2 * 2  # x eta {0, SERVE_ETA} x start_step {0, SERVE_START_STEP}
+    if len(warmed) != n_want or not all(p.graphs for p in served._compiled.values()):
+        fail(f"[serve] warmup left {len(warmed)} programs, expected {n_want} captured ones")
     print(f"[serve] saved the pipeline in {t_save:.2f} s, loaded it through make_server in {t_load:.2f} s (weights "
           f"and configs equal), warmed tiers {server.batcher.tiers} x eta {{0, {SERVE_ETA}}} x start_step "
-          f"{{0, {SERVE_START_STEP}}} in {t_warm:.2f} s  [{card}]")
+          f"{{0, {SERVE_START_STEP}}} in {t_warm:.2f} s: {len(warmed)} programs captured (cuDNN off), "
+          f"{sum(p.warmup_seconds for p in served._compiled.values()):.2f} s of eager warm-ups and "
+          f"{sum(p.capture_seconds for p in served._compiled.values()):.2f} s of capture, graph pool "
+          f"{sum(p.pool_bytes for p in served._compiled.values()) / 2**30:.4f} GiB  [{card}]")
 
     mel = served.mel
     tt = np.arange(mel.x_res * mel.hop_length) / mel.get_sample_rate()
@@ -999,9 +1025,11 @@ def phase_serve(pipe, card: str):
             cross = np.abs(solo.astype(np.int32) - same_tier["eta 0"].astype(np.int32))
             fail(f"[serve] eta 0: seed 1000 alone (tier 1) and at tier {SERVE_TIER} differ: max uint8 diff "
                  f"{cross.max()}, {100 * (cross > 0).mean():.2f}% of pixels")
+        if set(served._compiled) != warmed:
+            fail(f"[serve] live traffic captured programs warmup missed: {set(served._compiled) - warmed}")
         print(f"[serve] ok: wav and json PCM identical; seed 1000 bitwise the same spectrogram with other companions "
               f"at tier {SERVE_TIER} (eta 0) and tier 4 (eta {SERVE_ETA}), and alone at tier 1 (eta 0) as at tier "
-              f"{SERVE_TIER}  [{card}]")
+              f"{SERVE_TIER}; every batch a replay of a program warmup captured, none captured after it  [{card}]")
         phase_tier(served, card)
 
         noise_ms = step_noise_ms(32, served.sample_hw)
@@ -1025,11 +1053,13 @@ def phase_serve(pipe, card: str):
 
 
 def phase_layers(pipe, card: str):
-    """Per-layer device times at batch 32 (CUDA events), for the breakdown."""
+    """Per-layer device times at batch 32 (CUDA events), for the breakdown:
+    the eager stages, called one by one (``pipe.fuse = False``)."""
     import torch
 
     from audio_diffusion_torch.pipelines.pipeline import LATENT_SCALE, postprocess_images
 
+    pipe.fuse = False
     b = 32
     gen = torch.Generator(device="cuda").manual_seed(7)
     x = torch.randn((b, 32, 32, 1), generator=gen, device="cuda")
@@ -1043,45 +1073,162 @@ def phase_layers(pipe, card: str):
         raw = postprocess_images(img)
         gl = {p: cuda_time_ms(lambda: pipe.mel.images_to_audio(raw, generator=gen, projection=p), 2)
               for p in ("fft", "matmul")}
-    print(f"[layers] batch 32 device ms: unet_step {unet_ms:.4f} (x{STEPS} = {unet_ms * STEPS:.2f}), "
+    pipe.fuse = True
+    print(f"[layers] (eager stages, pipe.fuse = False) batch 32 device ms: unet_step {unet_ms:.4f} "
+          f"(x{STEPS} = {unet_ms * STEPS:.2f}), "
           f"vae_decode {vae_ms:.4f}, postprocess {post_ms:.4f}, nnls+gl fft {gl['fft']:.4f}, "
           f"nnls+gl matmul {gl['matmul']:.4f}  [{card}]")
     return {"unet_step": unet_ms, "vae_decode": vae_ms, "postprocess": post_ms, "gl": gl}
 
 
-def phase_profile(pipe, card: str):
-    """torch.profiler over one batch-32 request: device busy share of the
-    wall time and the kernels that take the most device time."""
+OUR_KERNELS = ("gn_silu_warp_kernel", "gn_silu_cta_kernel", "mha_small_kernel", "mha_mma_kernel", "mha_simt_kernel")
+
+
+def profile_request(pipe, fuse: bool, b: int = 32, seed: int = 104) -> dict:
+    """torch.profiler over one request of ``b`` at STEPS steps, eager or
+    fused: the wall, the device busy time, the events with device time, and
+    the count of each of this repo's kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    gen = torch.Generator(device="cuda").manual_seed(104)
+    pipe.fuse = fuse
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        pipe(batch_size=32, steps=STEPS, generator=gen, return_arrays=True)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            pipe(batch_size=b, steps=STEPS, generator=gen, return_arrays=True)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        pipe.fuse = True
     events = [e for e in prof.key_averages() if dev_us(e) > 0]
     busy = sum(dev_us(e) for e in events)
-    print(f"[profile] batch 32, {STEPS} steps, profiled wall {wall_us / 1e3:.2f} ms, device busy "
-          f"{busy / 1e3:.2f} ms = {100 * busy / wall_us:.2f}% (idle {100 - 100 * busy / wall_us:.2f}%)  [{card}]")
+    counts = {name: sum(e.count for e in events if name in e.key) for name in OUR_KERNELS}
+    return {"wall_us": wall_us, "busy_us": busy, "idle": 100 - 100 * busy / wall_us, "events": events,
+            "counts": counts, "copies": [e for e in prof.key_averages() if e.key == "aten::copy_"]}
+
+
+def dev_us(e) -> float:
+    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+
+def phase_profile(pipe, card: str) -> dict:
+    """torch.profiler over one eager batch-32 request (``pipe.fuse = False``):
+    device busy share of the wall time and the kernels that take the most
+    device time. Returns the profile, for [fused] to set the graph's beside."""
+    p = profile_request(pipe, fuse=False)
+    wall_us, busy, events = p["wall_us"], p["busy_us"], p["events"]
+    print(f"[profile] eager (pipe.fuse = False) batch 32, {STEPS} steps, profiled wall {wall_us / 1e3:.2f} ms, "
+          f"device busy {busy / 1e3:.2f} ms = {100 * busy / wall_us:.2f}% (idle {p['idle']:.2f}%)  [{card}]")
     for e in sorted(events, key=dev_us, reverse=True)[:12]:
         print(f"  {dev_us(e) / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
     ours = []
-    for name in ("gn_silu_warp_kernel", "gn_silu_cta_kernel", "mha_small_kernel", "mha_mma_kernel",
-                 "mha_simt_kernel"):
+    for name in OUR_KERNELS:
         hits = [e for e in events if name in e.key]
         ms = sum(dev_us(e) for e in hits) / 1e3
         ours.append(f"{name} {ms:.3f} ms / {sum(e.count for e in hits)}x ({ms / STEPS:.4f} ms per UNet forward)")
     print("[profile] this repo's kernels, device time in that request: " + "; ".join(ours))
-    copies = [e for e in prof.key_averages() if e.key == "aten::copy_"]
-    print(f"[profile] aten::copy_ in that request: {sum(e.count for e in copies)} calls, "
-          f"{sum(dev_us(e) for e in copies) / 1e3:.3f} ms device time  [{card}]")
+    print(f"[profile] aten::copy_ in that request: {sum(e.count for e in p['copies'])} calls, "
+          f"{sum(dev_us(e) for e in p['copies']) / 1e3:.3f} ms device time  [{card}]")
+    return p
+
+
+def phase_fused(pipe, card: str, eager_profile: dict) -> dict:
+    """The fused path against the eager one on the [main] pipeline: for each
+    of REQUESTS, an eager request (``fuse = False``) and a graph replay of the
+    program [main]'s warm-up call captured, from one generator seed each:
+    spectrograms bitwise, audio bitwise or within 1 int16 LSB (the reason
+    printed), 64 and 6 launches per denoise step on both paths (the graph's
+    credited per replay), no capture; walls, peak memory, the program's
+    capture time and graph-pool bytes. Then one batch-32 replay under
+    torch.profiler: its credited launches against the kernels the profiler
+    counts, and the device idle share beside [profile]'s eager request."""
+    import torch
+
+    from audio_diffusion_torch.ops import attention as at
+    from audio_diffusion_torch.ops import fused_groupnorm as gn
+    from audio_diffusion_torch.pipelines.pipeline import pcm16_quantize
+
+    counters = (gn.group_norm_silu, at.flash_mha)
+    want = [64 * STEPS, 6 * STEPS]
+    out = {}
+    for b, seed in REQUESTS:
+        prog = pipe._compiled.get(pipe.signature(STEPS, 0.0, b, None, False, 0, 0, 0, "none"))
+        if prog is None or prog.graphs is None:
+            fail(f"[fused] batch {b}: [main]'s requests left no captured program")
+        runs = {}
+        n_programs = len(pipe._compiled)
+        for fuse in (False, True):
+            pipe.fuse = fuse
+            before = [c.launches for c in counters]
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            try:
+                raw, audio = pipe(batch_size=b, steps=STEPS, generator=gen, return_arrays=True)
+                torch.cuda.synchronize()
+            finally:
+                pipe.fuse = True
+            runs[fuse] = {"raw": raw, "audio": audio, "wall": time.perf_counter() - t0,
+                          "peak": torch.cuda.max_memory_allocated() / 2**30,
+                          "launches": [c.launches - x for c, x in zip(counters, before)]}
+        eager, graph = runs[False], runs[True]
+        if len(pipe._compiled) != n_programs:
+            fail(f"[fused] batch {b}: the requests captured another program")
+        for name, r in runs.items():
+            if r["launches"] != want:
+                fail(f"[fused] batch {b} {'graph' if name else 'eager'}: launches (group_norm_silu, flash_mha) "
+                     f"{r['launches']}, expected {want}")
+        if not torch.equal(graph["raw"], eager["raw"]):
+            d = (graph["raw"].int() - eager["raw"].int()).abs()
+            fail(f"[fused] batch {b}: the graph's spectrograms are not bitwise the eager ones (max uint8 diff "
+                 f"{d.max().item()} on {(d > 0).float().mean().item():.3%} of pixels)")
+        if torch.equal(graph["audio"], eager["audio"]):
+            audio_note = "audio bitwise"
+        else:
+            lsb = (pcm16_quantize(graph["audio"]).int() - pcm16_quantize(eager["audio"]).int()).abs().max().item()
+            if lsb > 1:
+                fail(f"[fused] batch {b}: the graph's int16 audio differs from the eager one by {lsb} LSB")
+            audio_note = (f"audio within {lsb} int16 LSB (from bitwise spectrograms and one phase: Griffin-Lim's "
+                          f"f32 sums rounded in another order in the graph)")
+        out[b] = {"eager_s": eager["wall"], "graph_s": graph["wall"], "warmup_s": prog.warmup_seconds,
+                  "capture_s": prog.capture_seconds,
+                  "pool_bytes": prog.pool_bytes, "eager_peak_gib": eager["peak"], "graph_peak_gib": graph["peak"]}
+        print(f"[fused] batch {b}: eager {eager['wall']:.4f} s, graph {graph['wall']:.4f} s "
+              f"({eager['wall'] / graph['wall']:.2f}x); its first call's eager warm-up {prog.warmup_seconds:.4f} s, "
+              f"capture {prog.capture_seconds:.4f} s in {len(prog.graphs)} "
+              f"graph(s), graph pool +{prog.pool_bytes / 2**30:.4f} GiB (reserved); peak allocated "
+              f"eager {eager['peak']:.4f} GiB, graph {graph['peak']:.4f} GiB (outside the pool); spectrograms bitwise, "
+              f"{audio_note}; "
+              f"launches group_norm_silu/flash_mha {graph['launches']} on both paths  [{card}]")
+
+    # The profiler's kernel records come from CUPTI, which can drop a few under a burst of graph kernels (seen
+    # once: 3,198 of 3,200). So up to FUSED_PROFILES profiled replays: a count above the credit fails at once,
+    # and one of them must see exactly the credit.
+    attempts = []
+    for _ in range(FUSED_PROFILES):
+        before = [c.launches for c in counters]
+        p = profile_request(pipe, fuse=True)
+        credited = [c.launches - x for c, x in zip(counters, before)]
+        seen = [sum(v for k, v in p["counts"].items() if k.startswith("gn_silu_")), p["counts"]["mha_small_kernel"]]
+        attempts.append(seen)
+        if credited != want or any(s > c for s, c in zip(seen, credited)):
+            fail(f"[fused] one batch-32 replay: credited launches {credited}, torch.profiler counted {seen} "
+                 f"(gn_silu_*_kernel, mha_small_kernel), expected {want}")
+        if seen == credited:
+            break
+    else:
+        fail(f"[fused] {FUSED_PROFILES} profiled batch-32 replays: torch.profiler counted {attempts}, never the "
+             f"credited {credited}")
+    print(f"[fused] ok: one batch-32 replay credited {credited} launches = the profiler's gn_silu_*/mha_small_kernel "
+          f"counts {seen} (profiled replays: {attempts}); under torch.profiler graph wall {p['wall_us'] / 1e3:.2f} ms, "
+          f"device busy "
+          f"{p['busy_us'] / 1e3:.2f} ms (idle {p['idle']:.2f}%) against eager {eager_profile['wall_us'] / 1e3:.2f} "
+          f"ms, busy {eager_profile['busy_us'] / 1e3:.2f} ms (idle {eager_profile['idle']:.2f}%); programs "
+          f"{len(pipe._compiled)}, pool bytes in all {sum(q.pool_bytes for q in pipe._compiled.values())}  [{card}]")
+    return out
 
 
 def phase_unet_reference():
@@ -1894,17 +2041,14 @@ def click_track(bpm: float, seconds: float, sr: int = 22050):
 
 
 class _CountedPipe:
-    """A pipeline whose every call must launch the GroupNorm+SiLU kernel 64
-    times and flash_mha 6 times per denoise step (the UNet's forwards, counted
-    by a hook), with STEPS - start_step steps; each call's wall time, the
-    shape of its raw_audio and its generator's state are kept."""
+    """A pipeline whose every call must run STEPS - start_step denoise steps
+    and launch the GroupNorm+SiLU kernel 64 times and flash_mha 6 times per
+    denoise step, once more for a call that captures its program (the
+    capture's eager warm-up); each call's wall time, the shape of its
+    raw_audio and its generator's state are kept."""
 
     def __init__(self, pipe, name: str):
-        self.pipe, self.name, self.calls, self.forwards = pipe, name, [], 0
-        self.hook = pipe.unet.register_forward_pre_hook(self._forward)
-
-    def _forward(self, *_):
-        self.forwards += 1
+        self.pipe, self.name, self.calls = pipe, name, []
 
     def __getattr__(self, name):
         return getattr(self.pipe, name)
@@ -1918,19 +2062,21 @@ class _CountedPipe:
 
         gen = kw.get("generator")
         state = gen.get_state() if gen is not None else None
-        before, f0 = (gn.group_norm_silu.launches, at.flash_mha.launches), self.forwards
+        before, n_programs = (gn.group_norm_silu.launches, at.flash_mha.launches), len(self.pipe._compiled)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = self.pipe(**kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        f = self.forwards - f0
+        f = (kw.get("steps") or self.pipe.get_default_steps()) - kw.get("start_step", 0)
+        runs = 1 + len(self.pipe._compiled) - n_programs
         delta = (gn.group_norm_silu.launches - before[0], at.flash_mha.launches - before[1])
-        if f != STEPS - kw.get("start_step", 0) or delta != (64 * f, 6 * f):
-            fail(f"[apps] {self.name}: {f} denoise steps with launches (group_norm_silu, flash_mha) {delta}; "
-                 f"expected {STEPS - kw.get('start_step', 0)} steps and 64 and 6 launches per step")
+        if f != STEPS - kw.get("start_step", 0) or delta != (64 * f * runs, 6 * f * runs):
+            fail(f"[apps] {self.name}: {f} denoise steps, {runs - 1} captures, with launches (group_norm_silu, "
+                 f"flash_mha) {delta}; expected {STEPS - kw.get('start_step', 0)} steps and 64 and 6 launches per "
+                 f"step, once more for a capture's warm-up")
         raw = kw.get("raw_audio")
-        self.calls.append({"wall": wall, "steps": f, "state": state,
+        self.calls.append({"wall": wall, "steps": f, "runs": runs, "state": state,
                            "raw_audio": None if raw is None else np.asarray(raw).shape})
         return out
 
@@ -2058,21 +2204,22 @@ def phase_apps(pipe, card: str) -> dict:
         if len(app_counted.calls) != 1 or image3.size != (256, 256) or len(loop3) == 0:
             fail(f"[apps] the callback made {len(app_counted.calls)} calls, image {image3.size}")
         apps._cache.clear()
-        counted.hook.remove()
-        app_counted.hook.remove()
 
     launches = {c.__name__: c.launches for c in counters}
     calls = counted.calls[1:] + app_counted.calls
     steps = sum(c["steps"] for c in calls)
-    if launches != {"group_norm_silu": 64 * steps, "flash_mha": 6 * steps}:
-        fail(f"[apps] launches {launches} over {steps} denoise steps")
+    runs = sum(c["steps"] * c["runs"] for c in calls)  # a capture's eager warm-up runs its steps once more
+    if launches != {"group_norm_silu": 64 * runs, "flash_mha": 6 * runs}:
+        fail(f"[apps] launches {launches} over {steps} denoise steps ({runs} with the captures' warm-ups)")
     print(f"[apps] saved + loaded through AudioDiffusion(dtype=bfloat16, fused_groupnorm=True) in {t_load:.2f} s, "
           f"apps.get_model {t_app_load:.2f} s; walls: "
           + "; ".join(f"{k} {v:.4f} s" for k, v in walls.items())
           + f"; loop_it of the generated clip: {'none' if generated_loop is None else len(generated_loop)} samples  "
           f"[{card}]")
     print(f"[apps] ok: {len(calls)} pipeline calls, {steps} denoise steps, launches {launches} = 64 and 6 per denoise "
-          f"step of every call; lengths by the stitch arithmetic; serial remix pinned (first window bitwise a direct "
+          f"step of every call, and of the eager warm-up of each of the "
+          f"{sum(c['runs'] - 1 for c in calls)} captures; lengths by the stitch "
+          f"arithmetic; serial remix pinned (first window bitwise a direct "
           f"call), parallel remix one call of {APPS_REMIX_WINDOWS} rows")
     return launches
 
@@ -2429,8 +2576,9 @@ def phase_shard(card: str) -> dict:
             torch.backends.cudnn.enabled = True
 
     counters = (gn.group_norm_silu, at.flash_mha)
+    for p in (pipe, sharded):  # warm-up: each captures one program per cuDNN setting
+        call(p, False), call(p, True)
     ref_off, ref_on = call(pipe, False), call(pipe, True)  # the unsharded calls: the comparison, not counted
-    call(sharded, False)  # warm-up of the replicas
     for c in counters:
         c.launches = 0
     off, on = call(sharded, False), call(sharded, True)
@@ -2536,8 +2684,9 @@ def phase_native(pipe, card: str, root: Path) -> dict:
     ``.safetensors`` weights (written by the port's writer); each reloaded
     through ``from_pretrained(dtype="bfloat16", fused_groupnorm=True)`` answers
     a batch-8 request at 50 steps bitwise the original's, through both kernels
-    (64 GroupNorm+SiLU and 6 attention launches per denoise step). The counts
-    are set to 0 before each reloaded request and read after it."""
+    (64 GroupNorm+SiLU and 6 attention launches per denoise step). Each
+    reloaded pipeline's first call captures its program; the counts are set
+    to 0 before the request that follows, a replay, and read after it."""
     import shutil
 
     import torch
@@ -2584,6 +2733,7 @@ def phase_native(pipe, card: str, root: Path) -> dict:
             sa, sb = a.state_dict(), b.state_dict()
             if a.config != b.config or sa.keys() != sb.keys() or not all(torch.equal(sa[k], sb[k]) for k in sa):
                 fail(f"[native] {layout}: the reloaded {type(a).__name__} differs from the saved one")
+        capture_wall = request(loaded)[2]  # the first call captures the program; the counted one replays it
         raw, audio, wall, launches = request(loaded)
         if not (torch.equal(raw, want_raw) and torch.equal(audio, want_audio)):
             fail(f"[native] {layout}: the reloaded pipeline's batch-{NATIVE_BATCH} request differs from the "
@@ -2594,8 +2744,9 @@ def phase_native(pipe, card: str, root: Path) -> dict:
         weights = sum(f.stat().st_size for f in (root / layout).rglob("*")
                       if f.name in (diffusers_io.WEIGHTS_NAME, diffusers_io.SAFETENSORS_NAME, diffusers_io.NATIVE_NAME))
         print(f"[native] {layout}: save {saves[layout]:.4f} s, {_dir_bytes(root / layout)} bytes ({weights} of "
-              f"weights), load {load_s:.4f} s; batch-{NATIVE_BATCH} request at {STEPS} steps {wall:.4f} s (the "
-              f"original's {want_wall:.4f} s) bitwise the original's spectrograms and audio; launches "
+              f"weights), load {load_s:.4f} s; batch-{NATIVE_BATCH} request at {STEPS} steps {wall:.4f} s, a replay "
+              f"(the first call, with its capture, {capture_wall:.4f} s; the original's {want_wall:.4f} s) bitwise "
+              f"the original's spectrograms and audio; launches "
               f"group_norm_silu/flash_mha {launches} = {[n // STEPS for n in launches]} per denoise step  [{card}]")
         per_layout[layout] = dict(zip(("group_norm_silu", "flash_mha"), launches))
         del loaded
@@ -2663,13 +2814,33 @@ def phase_cond_train(card: str, root: Path) -> dict:
 PHASE_GROUPS = ("kernels", "main", "apps", "cond", "train", "dp", "interop")
 
 
+def release_device_memory(what: str) -> None:
+    """Free what a group of phases left behind before the next one measures:
+    pipelines held only in reference cycles (a stopped server's handlers and
+    batcher) keep their CUDA graphs and graph pools until the cycle collector
+    runs, so collect, return the cached blocks, and print what stays."""
+    import gc
+    import threading
+
+    import torch
+
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[memory] after {what}: reserved {held / 2**30:.4f} GiB, {torch.cuda.memory_reserved() / 2**30:.4f} GiB "
+          f"once reference cycles are collected (allocated {torch.cuda.memory_allocated() / 2**30:.4f} GiB), "
+          f"{threading.active_count()} threads")
+
+
 def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="Drive the port's paths on one GPU and check them.")
     ap.add_argument("--only", default=",".join(PHASE_GROUPS),
                     help="comma-separated phase groups for a partial run (kernels: gn, attn, attn-sweep, ref; main: "
-                         "main, layers, profile, fidelity, serve, tier; apps: apps, prepare, golden; cond; train: "
+                         "main, layers, profile, fused, fidelity, serve, tier; apps: apps, prepare, golden; cond; "
+                         "train: "
                          "attn-grad, train, train-pixel, train-vae; dp: dp, shard, encoder-train; interop: native, "
                          "cond-train); a partial run prints no result lines")
     # one rank of [dp]: the script re-runs itself with these
@@ -2721,7 +2892,7 @@ def main(argv=None) -> int:
     if "main" in only:
         launches = phase_main(pipe, card)
         phase_layers(pipe, card)
-        phase_profile(pipe, card)
+        phase_fused(pipe, card, phase_profile(pipe, card))
         phase_fidelity(pipe, card)
         serve_launches = phase_serve(pipe, card)
     if "apps" in only:
@@ -2735,7 +2906,7 @@ def main(argv=None) -> int:
             native_launches = phase_native(pipe, card, Path(d))
     if {"main", "apps", "interop"} & only:
         del pipe
-        torch.cuda.empty_cache()
+        release_device_memory("the latent-256 pipeline's groups")
     if "tier" in only and "main" not in only:
         phase_tier(build_pipeline(), card)
         torch.cuda.empty_cache()
@@ -2751,7 +2922,7 @@ def main(argv=None) -> int:
         phase_fidelity(cond_pipe, card, GL_BOUND_512)
         phase_cond_serve(cond_pipe, encodings, card)
         del cond_pipe
-        torch.cuda.empty_cache()
+        release_device_memory("the conditional group")
     if "train" in only:
         import tempfile
 

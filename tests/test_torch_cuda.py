@@ -360,8 +360,10 @@ def test_from_pretrained_on_the_card_takes_the_kernels(tmp_path):
         raw, audio = pipe(batch_size=2, steps=2, return_arrays=True, pcm16=True)
         torch.cuda.synchronize()
         assert raw.is_cuda and raw.shape == (2, 16, 16) and audio.dtype == torch.int16
-        assert gn.group_norm_silu.launches - before[0] == want_gn
-        assert at.flash_mha.launches - before[1] == n_attn * 2
+        runs = 1 + len(pipe._compiled)  # the first call captures its program after an eager warm-up
+        assert runs == 2
+        assert gn.group_norm_silu.launches - before[0] == want_gn * runs
+        assert at.flash_mha.launches - before[1] == n_attn * 2 * runs
 
 
 @pytest.mark.cuda
@@ -497,11 +499,12 @@ def test_audio_diffusion_on_the_card_takes_both_kernels(tmp_path):
     for call, steps in ((lambda g: ad.generate_spectrogram_and_audio(steps=3, generator=g), 3),
                         (lambda g: ad.generate_spectrogram_and_audio_from_audio(
                             raw_audio=clip, start_step=1, steps=3, mask_start_secs=0.1, generator=g), 2)):
-        before = (gn.group_norm_silu.launches, at.flash_mha.launches)
+        before, n_programs = (gn.group_norm_silu.launches, at.flash_mha.launches), len(ad.pipe._compiled)
         image, (sr, audio) = call(torch.Generator(device="cuda").manual_seed(1))
         torch.cuda.synchronize()
+        runs = 1 + len(ad.pipe._compiled) - n_programs  # a call that captures runs its steps once more, eagerly
         assert (gn.group_norm_silu.launches - before[0], at.flash_mha.launches - before[1]) == \
-            (2 * n_res * steps, n_attn * steps)
+            (2 * n_res * steps * runs, n_attn * steps * runs)
         assert image.size == (16, 16) and sr == 22050 and audio.shape == (15 * 512,)
         assert torch.isfinite(torch.from_numpy(audio)).all()
 
@@ -540,12 +543,13 @@ def test_stitch_on_the_card_stays_on_the_device(tmp_path):
                                 (lambda: stitch.remix(OnTheCard(), track, start_step=1, overlap_secs=0.1, steps=2,
                                                       parallel=True), 1, 1)):
         calls.clear()
-        before = (gn.group_norm_silu.launches, at.flash_mha.launches)
+        before, n_programs = (gn.group_norm_silu.launches, at.flash_mha.launches), len(pipe._compiled)
         out = run()
         torch.cuda.synchronize()
         assert len(calls) == n_calls and np.isfinite(out).all()
+        runs = n_calls + len(pipe._compiled) - n_programs  # a capture's eager warm-up runs the steps once more
         assert (gn.group_norm_silu.launches - before[0], at.flash_mha.launches - before[1]) == \
-            (2 * n_res * steps * n_calls, n_attn * steps * n_calls)
+            (2 * n_res * steps * runs, n_attn * steps * runs)
     assert calls == [(n_windows, 16 * 512)]
 
 
@@ -591,3 +595,140 @@ def test_nccl_world_one_ddp_step_equals_the_plain_step(tmp_path):
     (loss_plain, plain), (loss_ddp, ddp) = out
     assert torch.equal(loss_plain, loss_ddp)
     assert all(torch.equal(plain[k], ddp[k]) for k in plain)
+
+
+# ------------------------------------------------ the fused path: one CUDA graph per request signature
+
+def _tiny_fused_pipeline():
+    """The pipeline of _tiny_saved_pipeline on the card, with the GroupNorm+SiLU kernel."""
+    from audio_diffusion_torch.mel import Mel
+    from audio_diffusion_torch.models import UNet2D, UNetConfig
+    from audio_diffusion_torch.pipelines import AudioDiffusionPipeline
+    from audio_diffusion_torch.schedulers import DDIMScheduler
+
+    cfg = UNetConfig(sample_size=(16, 16), block_out_channels=(32, 64), down_block_types=("DownBlock2D",
+                     "AttnDownBlock2D"), up_block_types=("AttnUpBlock2D", "UpBlock2D"), layers_per_block=1,
+                     norm_num_groups=8, fused_groupnorm=True)
+    unet = UNet2D(cfg).init_params(torch.Generator().manual_seed(0))
+    return AudioDiffusionPipeline(unet, Mel(x_res=16, y_res=16, device="cuda"), DDIMScheduler(), device="cuda")
+
+
+def _gen(seed):
+    return torch.Generator(device="cuda").manual_seed(seed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("eta", [0.0, 0.5])
+def test_graph_replay_is_bitwise_the_eager_request(eta):
+    """A replayed request gives the eager request's spectrograms and int16
+    audio bit for bit, and the launches credited to the counters per replay
+    are the eager call's launches."""
+    _cuda()
+    pipe = _tiny_fused_pipeline()
+
+    def run(fuse):
+        pipe.fuse = fuse
+        before = (gn.group_norm_silu.launches, at.flash_mha.launches)
+        out = pipe(batch_size=2, steps=3, eta=eta, generator=_gen(1), step_generator=[_gen(2), _gen(3)],
+                   return_arrays=True, pcm16=True)
+        torch.cuda.synchronize()
+        pipe.fuse = True
+        return out, (gn.group_norm_silu.launches - before[0], at.flash_mha.launches - before[1])
+
+    run(True)  # captures the program
+    (prog,) = pipe._compiled.values()
+    (eager_raw, eager_audio), eager_launches = run(False)
+    (raw, audio), launches = run(True)
+    assert torch.equal(raw, eager_raw) and torch.equal(audio, eager_audio)
+    assert launches == eager_launches == tuple(prog.launches[0]) and eager_launches[0] > 0 and eager_launches[1] > 0
+
+
+@pytest.mark.cuda
+def test_one_capture_per_signature_and_outputs_outlive_the_next_replay():
+    _cuda()
+    pipe = _tiny_fused_pipeline()
+    first = pipe(batch_size=2, steps=2, generator=_gen(1), return_arrays=True)
+    (prog,) = pipe._compiled.values()
+    graphs, kept = prog.graphs, [t.clone() for t in first]
+    second = pipe(batch_size=2, steps=2, generator=_gen(2), return_arrays=True)
+    assert len(pipe._compiled) == 1 and prog.graphs is graphs  # a repeated signature replays
+    pipe(batch_size=2, steps=3, generator=_gen(3), return_arrays=True)
+    assert len(pipe._compiled) == 2  # another signature captures
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, kept)) and not torch.equal(first[0], second[0])
+    assert prog.capture_seconds > 0 and prog.pool_bytes >= 0
+
+
+@pytest.mark.cuda
+def test_capture_beside_another_thread_copying_to_the_host():
+    """A capture (capture_error_mode="thread_local") while another thread
+    does what the batcher's finisher does: pinned host buffers, copies on a
+    side stream, event waits. Neither fails, and the graph's request is
+    bitwise the eager one."""
+    _cuda()
+    import threading
+
+    from audio_diffusion_torch.serving.batcher import copy_to_host_async
+
+    pipe = _tiny_fused_pipeline()
+    stream, src = torch.cuda.Stream(), torch.randn(1 << 20, device="cuda")
+    stop, errors, copies = threading.Event(), [], []
+
+    def copier():
+        try:
+            while not stop.is_set():
+                hosts, (_, done) = copy_to_host_async([src], stream)
+                done.synchronize()
+                copies.append(hosts[0][:1].item())
+        except Exception as e:  # the test's assertion reports it
+            errors.append(e)
+
+    thread = threading.Thread(target=copier)
+    thread.start()
+    try:
+        graph = pipe(batch_size=2, steps=3, generator=_gen(1), return_arrays=True)  # warm-up, capture, replay
+        torch.cuda.synchronize()
+    finally:
+        stop.set()
+        thread.join(timeout=60)
+    assert not thread.is_alive() and not errors and copies and len(pipe._compiled) == 1
+    pipe.fuse = False
+    eager = pipe(batch_size=2, steps=3, generator=_gen(1), return_arrays=True)
+    assert all(torch.equal(a, b) for a, b in zip(graph, eager))
+
+
+FAILING_CAPTURE = """
+import sys
+sys.path.insert(0, "tests")
+from test_torch_cuda import _tiny_fused_pipeline
+pipe = _tiny_fused_pipeline()
+
+
+def host_read(module, args):  # reads a value on the host: no graph can hold that
+    args[0].sum().item()
+
+
+pipe.unet.register_forward_pre_hook(host_read)
+try:
+    pipe(batch_size=1, steps=2, return_arrays=True)
+except RuntimeError as e:
+    print("raised", pipe._compiled == {}, type(e).__name__)
+else:
+    print("returned")
+"""
+
+
+@pytest.mark.cuda
+def test_a_failed_capture_raises_and_caches_nothing():
+    """No eager fallback: a program that cannot be captured raises. In a
+    process of its own, since a failed capture may leave the CUDA context
+    unusable for what follows."""
+    _cuda()
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", FAILING_CAPTURE], cwd=repo, capture_output=True, text=True,
+                         timeout=600)
+    assert "raised True" in out.stdout, out.stdout + out.stderr[-3000:]

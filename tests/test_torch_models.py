@@ -54,7 +54,9 @@ def random_params(init_fn, seed):
     return jax.tree_util.tree_map_with_path(draw, shapes)
 
 
-def _unet_pair():
+@pytest.fixture(scope="module")
+def unet_pair():
+    """The JAX UNet's config and seeded parameters, and the port's UNet holding them."""
     cfg = UNetConfig(**UNET_KW)
     params = random_params(UNet2D(cfg).init_params, 1)
     port = TorchUNet(TorchUNetConfig(**UNET_KW))
@@ -62,7 +64,9 @@ def _unet_pair():
     return cfg, params, port
 
 
-def _vae_pair():
+@pytest.fixture(scope="module")
+def vae_pair():
+    """The same for the VAE."""
     cfg = VAEConfig(**VAE_KW)
     params = random_params(AutoencoderKL(cfg).init_params, 3)
     port = TorchVAE(TorchVAEConfig(**VAE_KW))
@@ -77,17 +81,17 @@ def _same_state_dict(ours, theirs):
         np.testing.assert_array_equal(ours[k], theirs[k], err_msg=k)
 
 
-def test_convert_matches_torch_export():
-    cfg, params, port = _unet_pair()
+def test_convert_matches_torch_export(unet_pair, vae_pair):
+    cfg, params, port = unet_pair
     _same_state_dict(unet_state_dict(params, cfg), export_unet(params, cfg))
     assert sorted(port.state_dict()) == sorted(export_unet(params, cfg))
-    vcfg, vparams, vport = _vae_pair()
+    vcfg, vparams, vport = vae_pair
     _same_state_dict(vae_state_dict(vparams, vcfg), export_vae(vparams, vcfg))
     assert sorted(vport.state_dict()) == sorted(export_vae(vparams, vcfg))
 
 
-def test_unet_matches_flax():
-    cfg, params, port = _unet_pair()
+def test_unet_matches_flax(unet_pair):
+    cfg, params, port = unet_pair
     rng = np.random.default_rng(4)
     x = rng.standard_normal((2, 16, 16, 1)).astype(np.float32)
     t = np.array([999, 37], dtype=np.int32)
@@ -98,8 +102,8 @@ def test_unet_matches_flax():
     np.testing.assert_allclose(got, want, atol=1e-4)
 
 
-def test_vae_matches_flax():
-    cfg, params, port = _vae_pair()
+def test_vae_matches_flax(vae_pair):
+    cfg, params, port = vae_pair
     vae = AutoencoderKL(cfg)
     rng = np.random.default_rng(5)
     z = rng.standard_normal((2, 8, 8, 1)).astype(np.float32)
@@ -116,10 +120,10 @@ def test_vae_matches_flax():
     np.testing.assert_allclose(ours.logvar.numpy(), np.asarray(logvar), atol=1e-4)
 
 
-def test_bf16_compute_keeps_f32_params():
+def test_bf16_compute_keeps_f32_params(unet_pair):
     """dtype="bfloat16" computes in bf16 on f32 parameters and still returns
     an f32 prediction close to the f32 model's."""
-    _, params, port = _unet_pair()
+    _, params, port = unet_pair
     cfg16 = TorchUNetConfig(**{**UNET_KW, "dtype": "bfloat16"})
     port16 = TorchUNet(cfg16)
     port16.load_state_dict(port.state_dict(), strict=True)

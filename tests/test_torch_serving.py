@@ -337,6 +337,36 @@ def test_warmup_covers_live_batch_signatures(pipe):
     assert live and live <= warmed, live - warmed
 
 
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for a test of many tiny batches: the fastest for
+    them, and the test keeps its time when other test processes load every core."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_warmup_covers_live_batch_programs(one_thread):
+    """The counterpart of tests/test_serving.py::test_warmup_covers_live_batch_programs:
+    after warmup(), live batches run only fused programs warmup already made
+    (on the card, captured), so no capture happens inside the serving window.
+    A fresh pipeline, so the cache accounting is exact."""
+    fresh = _pipe()
+    batcher = DynamicBatcher(fresh, max_batch=4, max_wait_ms=50, steps=3, allowed_etas=(1.0,))
+    try:
+        batcher.warmup()
+        warmed = set(fresh._compiled)
+        assert len(warmed) == len(batcher.tiers) * 2  # tiers x etas
+        futs = [batcher.submit(seed=s) for s in (1, 2, 3)] + [batcher.submit(seed=4, eta=1.0)]
+        for f in futs:
+            f.result(timeout=120)
+    finally:
+        batcher.close()
+    new = set(fresh._compiled) - warmed
+    assert not new, f"live batches made programs warmup missed: {sorted(map(str, new))}"
+
+
 def test_finisher_copy_on_the_cpu_is_the_plain_path():
     x = torch.arange(6).reshape(2, 3)
     hosts, events = copy_to_host_async((x, x + 1), None)
