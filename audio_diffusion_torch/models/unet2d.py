@@ -203,6 +203,9 @@ class SelfAttention2D(nn.Module):
         self.to_out = nn.ModuleList([Linear(channels, channels)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return in_row_blocks(self._forward, x)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape
         n = h * w
         y = group_norm(x, self.group_norm).reshape(b, c, n).transpose(1, 2)  # (B, N, C)
@@ -214,6 +217,31 @@ class SelfAttention2D(nn.Module):
         # On the card o views a (B, N, heads, d) buffer, so this reshape copies nothing.
         o = self.to_out[0](o.transpose(1, 2).reshape(b, n, c))
         return o.transpose(1, 2).reshape(b, c, h, w) + x
+
+
+# On the card, f32 attention blocks run on blocks of this many rows: see in_row_blocks.
+ROW_BLOCK = 8
+
+
+def in_row_blocks(fn, *rows: torch.Tensor) -> torch.Tensor:
+    """``fn(*rows)`` for tensors whose dim 0 is the batch. For f32 tensors on
+    the card ``fn`` runs on consecutive blocks of :data:`ROW_BLOCK` rows, the
+    batch zero-padded up to a whole number of them, and the padding is
+    dropped: every product inside then has one shape whatever the batch.
+    cuBLAS picks its f32 kernel (split-K and the like) by the product's rows
+    and batch count, so a row's f32 result would otherwise depend on its
+    batch: the attention blocks' projections fold the batch into the GEMM's
+    rows (chip_smoke.py's ``[tier]`` names those calls). bf16 runs in one
+    call: its kernels give a row the same bits in any batch, and blocks would
+    cost launches on the headline path. The CPU runs in one call too."""
+    b = rows[0].shape[0]
+    if rows[0].dtype != torch.float32 or not rows[0].is_cuda:
+        return fn(*rows)
+    pad = -b % ROW_BLOCK
+    rows = [torch.cat([t.contiguous(), t.new_zeros((pad, *t.shape[1:]))]) if pad else t.contiguous() for t in rows]
+    if b + pad == ROW_BLOCK:
+        return fn(*rows)[:b]
+    return torch.cat([fn(*block) for block in zip(*(t.split(ROW_BLOCK) for t in rows))])[:b]
 
 
 def rowwise_linear(linear: Linear, x: torch.Tensor) -> torch.Tensor:
@@ -312,6 +340,9 @@ class Transformer2D(nn.Module):
         self.proj_out = Linear(channels, channels)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+        return in_row_blocks(self._forward, x, context)
+
+    def _forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape
         y = group_norm(x, self.norm).reshape(b, c, h * w).transpose(1, 2)  # (B, N, C)
         y = self.proj_out(self.transformer_blocks[0](self.proj_in(y), context))

@@ -19,7 +19,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..utils.config import ConfigMixin
-from .unet2d import _DTYPES, Conv2d, Linear, Upsample2D, group_norm, init_flax_defaults
+from .unet2d import _DTYPES, Conv2d, Linear, Upsample2D, group_norm, in_row_blocks, init_flax_defaults
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,6 +102,9 @@ class VAEAttention(nn.Module):
         self.to_out = nn.ModuleList([Linear(channels, channels)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return in_row_blocks(self._forward, x)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape
         y = group_norm(x, self.group_norm).reshape(b, c, h * w).transpose(1, 2)  # (B, N, C)
         q, k, v = self.to_q(y), self.to_k(y), self.to_v(y)

@@ -148,7 +148,8 @@ class AudioDiffusionPipeline:
         self.mel = mel
         self.scheduler = scheduler
         self.mesh = None
-        self._replicas = None
+        self._replica_devices = None  # the mesh's data-axis devices once sharded
+        self._twins = {}  # device -> the replica on it, for every device but this pipeline's
         # Run eligible calls as one program per request signature (module docstring).
         self.fuse = True
         self._compiled = {}  # signature -> FusedProgram
@@ -172,11 +173,13 @@ class AudioDiffusionPipeline:
         devices = list(mesh.devices[:, 0])
         if devices[0] != rank_device(str(self.device)):
             raise ValueError(f"the mesh's first device {devices[0]} must be the pipeline's own ({self.device})")
-        replicas = {devices[0]: self}
+        twins = {}
         for d in devices[1:]:
-            if d not in replicas:
-                replicas[d] = self._replica(d)
-        self.mesh, self._replicas = mesh, [replicas[d] for d in devices]
+            if d != devices[0] and d not in twins:
+                twins[d] = self._replica(d)
+        # This pipeline is not in its own twins: a pipeline that held itself would live in a reference cycle,
+        # and with it its graphs and graph pool, until the cycle collector ran.
+        self.mesh, self._replica_devices, self._twins = mesh, devices, twins
         return self
 
     def _replica(self, device: torch.device) -> "AudioDiffusionPipeline":
@@ -323,7 +326,7 @@ class AudioDiffusionPipeline:
                 posterior sample; ``step_noise`` (denoise steps, B, H, W, C) the
                 variance noise: test hooks that hand both packages one draw.
         """
-        return (self._call_sharded if self._replicas is not None else self._call_one)(
+        return (self._call_sharded if self.mesh is not None else self._call_one)(
             batch_size=batch_size, audio_file=audio_file, raw_audio=raw_audio, slice=slice,
             start_step=start_step, steps=steps, generator=generator, mask_start_secs=mask_start_secs,
             mask_end_secs=mask_end_secs, step_generator=step_generator, eta=eta, noise=noise, encoding=encoding,
@@ -623,7 +626,8 @@ class AudioDiffusionPipeline:
         noise = torch.as_tensor(noise, dtype=torch.float32).to(self.device)
         if noise.shape[-1] != in_ch and noise.shape[1] == in_ch:
             noise = noise.permute(0, 2, 3, 1)
-        rows, n = noise.shape[0], len(self._replicas)
+        replicas = [self._twins.get(d, self) for d in self._replica_devices]
+        rows, n = noise.shape[0], len(replicas)
         if rows % n:
             raise ValueError(f"the batch ({rows}) must be a multiple of the mesh's data-axis size ({n}): "
                              "a sharded batch splits along 'data'")
@@ -651,7 +655,7 @@ class AudioDiffusionPipeline:
         def split(x, dim=0):  # n contiguous row blocks, or n times x for what every replica shares
             return x.split(rows // n, dim) if isinstance(x, torch.Tensor) else [x] * n
 
-        per_replica = zip(self._replicas, split(noise), split(enc), split(step_noise, 1), split(gl_phase),
+        per_replica = zip(replicas, split(noise), split(enc), split(step_noise, 1), split(gl_phase),
                           np.split(np.asarray(raw_audio), n) if batched else [raw_audio] * n)
         parts = []
         for rep, x, e, sn, ph, ra in per_replica:

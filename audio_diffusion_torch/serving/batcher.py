@@ -13,14 +13,20 @@
   of stochastic steps (DDPM, eta > 0) from a per-row ``torch.Generator``
   seeded with it (schedulers/common.py::step_noises). A row's spectrogram is
   therefore bitwise the same for any co-batch and, at eta 0, in any tier, as
-  in the JAX package. On a CUDA device that needs cuDNN off while a batch
-  runs (:meth:`DynamicBatcher._call_pipe`): cuDNN picks other convolution
+  in the JAX package, in bf16 and in f32. On a CUDA device that needs two
+  things. cuDNN is off while a batch runs: it picks other convolution
   kernels per batch shape, which round a row differently (chip_smoke.py's
   ``[tier]`` names the calls; ``cudnn.deterministic`` does not help), and 50
   denoise steps grow that rounding to whole uint8 levels; PyTorch's own
-  convolutions compute each row alone. PERF.md records what that costs.
-  Griffin-Lim's initial phase is drawn batch-shaped, so audio agrees across
-  compositions to Griffin-Lim convergence, not bitwise.
+  convolutions compute each row alone. The switch is one process-wide window
+  (:func:`..utils.batch_invariant.window`, entered by :meth:`DynamicBatcher._call_pipe`):
+  while any batcher's batch runs, every other thread of the process sees
+  cuDNN off too, and the flag comes back once the last batch of all ends.
+  And f32 attention runs in fixed blocks of rows
+  (:func:`..models.unet2d.in_row_blocks`), so cuBLAS sees one GEMM shape per
+  block whatever the tier. PERF.md records what both cost. Griffin-Lim's
+  initial phase is drawn batch-shaped, so audio agrees across compositions
+  to Griffin-Lim convergence, not bitwise.
 * **One worker owns the device; copies overlap compute.** Requests enqueue
   holding only their seed and settings; one worker drains a settings group
   and makes ONE pipeline call per batch. On a CUDA device the outputs are
@@ -49,6 +55,8 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+
+from ..utils import batch_invariant
 
 
 @dataclass
@@ -301,19 +309,15 @@ class DynamicBatcher:
         return [torch.Generator(device=self.device).manual_seed(s) for s in seeds]
 
     def _call_pipe(self, **kwargs):
-        """One pipeline call; on a CUDA device with cuDNN off for its length
-        (the module docstring's per-request determinism). Every kernel of the
-        call is chosen before it returns, so the flag is restored at once; the
-        flag is part of a fused program's signature, so a batch replays a
-        graph captured with cuDNN off."""
+        """One pipeline call; on a CUDA device inside the process-wide
+        :func:`..utils.batch_invariant.window` (the module docstring's
+        per-request determinism). Every kernel of the call is chosen before it
+        returns, so the window closes at once; the cuDNN flag is part of a fused
+        program's signature, so a batch replays a graph captured in the window."""
         if self.device.type != "cuda":
             return self.pipe(**kwargs)
-        enabled = torch.backends.cudnn.enabled
-        torch.backends.cudnn.enabled = False
-        try:
+        with batch_invariant.window():
             return self.pipe(**kwargs)
-        finally:
-            torch.backends.cudnn.enabled = enabled
 
     def warmup(self) -> None:
         """Run every (tier, steps, eta, start_step) the server accepts once, up

@@ -15,6 +15,10 @@ API:
   ``json`` responds the uint8 spectrogram (nested lists) and base64 16-bit
   PCM. 400 for a bad request, 429 with ``Retry-After`` when admission control
   sheds it, 500 when its batch failed, 503 while draining.
+
+``AudioDiffusionServer.stop()`` drains and closes; a stopped server holds no
+reference cycle, so dropping it frees its batcher and pipeline (with the
+pipeline's CUDA graphs and graph pool) at once.
 """
 
 from __future__ import annotations
@@ -36,7 +40,13 @@ logger = logging.getLogger("audio_diffusion_torch.serving")
 
 
 class AudioDiffusionServer:
-    """Owns a batcher and a ``ThreadingHTTPServer``; start/stop lifecycle."""
+    """Owns a batcher and a ``ThreadingHTTPServer``; start/stop lifecycle.
+
+    Nothing refers back to the server: the HTTP server holds the batcher and
+    the settings its handlers read, and the handler class is one module-level
+    class. So once the caller drops a stopped server, reference counting frees
+    it, its batcher and its pipeline (with the pipeline's CUDA graphs and
+    graph pool) at once, without waiting for the cycle collector."""
 
     def __init__(
         self,
@@ -66,13 +76,9 @@ class AudioDiffusionServer:
         )
         self.sample_rate = pipe.mel.get_sample_rate()
         self.request_timeout_s = request_timeout_s
-        self.httpd = ThreadingHTTPServer((host, port), _make_handler(self))
-        # Non-daemon handler threads + a socket timeout on keep-alive reads:
-        # server_close() then waits for in-flight responses to be written
-        # (graceful drain), while idle keep-alive connections exit within the
-        # timeout instead of blocking shutdown.
-        self.httpd.daemon_threads = False
+        self.httpd = _HTTPServer((host, port), self.batcher, self.sample_rate, request_timeout_s)
         self._thread: Optional[threading.Thread] = None
+        self._serving = False  # serve_forever was entered: shutdown() waits for it to return
 
     @property
     def address(self) -> tuple:
@@ -80,113 +86,132 @@ class AudioDiffusionServer:
 
     def start(self) -> None:
         """Serve on a background thread (returns immediately)."""
+        self._serving = True
         self._thread = threading.Thread(target=self.httpd.serve_forever, name="adt-http", daemon=True)
         self._thread.start()
         logger.info("serving on http://%s:%d", *self.address[:2])
 
     def serve_forever(self) -> None:
         logger.info("serving on http://%s:%d", *self.address[:2])
+        self._serving = True
         self.httpd.serve_forever()
 
     def stop(self) -> None:
         # Stop accepting -> drain the batcher (resolves every queued future so
         # blocked handlers can respond; late submits get 503) -> close, which
-        # joins the non-daemon handler threads.
-        self.httpd.shutdown()
+        # joins the non-daemon handler threads. A server never started has no
+        # serve_forever to wait for: shutdown() would wait for ever.
+        if self._serving:
+            self.httpd.shutdown()
         self.batcher.close()
         self.httpd.server_close()
         if self._thread is not None:
             self._thread.join()
 
 
-def _make_handler(server: AudioDiffusionServer):
-    class Handler(BaseHTTPRequestHandler):
-        protocol_version = "HTTP/1.1"
-        timeout = 5  # idle keep-alive reads exit within this during shutdown
+class _HTTPServer(ThreadingHTTPServer):
+    """The HTTP server with what its handlers read: the batcher, the sample
+    rate, the request timeout. Non-daemon handler threads + a socket timeout
+    on keep-alive reads: ``server_close()`` then waits for in-flight responses
+    to be written (graceful drain), while idle keep-alive connections exit
+    within the timeout instead of blocking shutdown."""
 
-        def log_message(self, fmt, *args):  # route to logging, not stderr
-            logger.debug("%s " + fmt, self.client_address[0], *args)
+    daemon_threads = False
 
-        def _respond(self, code: int, body: bytes, content_type: str, headers=()) -> None:
-            self.send_response(code)
-            self.send_header("Content-Type", content_type)
-            self.send_header("Content-Length", str(len(body)))
-            for k, v in headers:
-                self.send_header(k, v)
-            self.end_headers()
-            self.wfile.write(body)
+    def __init__(self, address, batcher: DynamicBatcher, sample_rate: int, request_timeout_s: float):
+        self.batcher = batcher
+        self.sample_rate = sample_rate
+        self.request_timeout_s = request_timeout_s
+        super().__init__(address, _Handler)
 
-        def _respond_json(self, code: int, obj, headers=()) -> None:
-            self._respond(code, json.dumps(obj).encode(), "application/json", headers)
 
-        def do_GET(self):
-            if self.path == "/healthz":
-                self._respond_json(200, {
-                    "status": "ok",
-                    "sample_rate": server.sample_rate,
-                    "tiers": list(server.batcher.tiers),
-                    "batches_run": server.batcher.batches_run,
-                    "requests_served": server.batcher.requests_served,
-                    **server.batcher.latency_summary(),
-                })
-            else:
-                self._respond_json(404, {"error": f"unknown path {self.path}"})
+class _Handler(BaseHTTPRequestHandler):
+    """One connection's requests; ``self.server`` is the :class:`_HTTPServer`."""
 
-        def do_POST(self):
-            if self.path != "/generate":
-                self._respond_json(404, {"error": f"unknown path {self.path}"})
-                return
-            try:
-                length = int(self.headers.get("Content-Length", 0))
-                req = json.loads(self.rfile.read(length) or b"{}")
-                if not isinstance(req, dict):
-                    raise ValueError("request body must be a JSON object")
-                encoding = req.get("encoding")
-                if encoding is not None:
-                    encoding = np.asarray(encoding, dtype=np.float32)
-                audio = None
-                if req.get("audio_pcm16_base64"):
-                    # Audio-to-audio: one 16-bit PCM clip at the model's
-                    # sample rate (clients resample; /healthz reports it).
-                    audio = np.frombuffer(
-                        base64.b64decode(req["audio_pcm16_base64"]), dtype=np.int16
-                    ).astype(np.float32) / 32767.0
-                fut = server.batcher.submit(
-                    seed=int(req.get("seed", 0)),
-                    steps=req.get("steps"),
-                    eta=req.get("eta"),
-                    encoding=encoding,
-                    audio=audio,
-                    start_step=int(req.get("start_step", 0)),
-                )
-            except (ValueError, TypeError, json.JSONDecodeError) as e:
-                self._respond_json(400, {"error": str(e)})
-                return
-            except QueueFull as e:  # admission control: shed, don't queue
-                retry = max(1, int(round(e.retry_after_s)))
-                self._respond_json(429, {"error": str(e), "retry_after_s": retry},
-                                   headers=[("Retry-After", str(retry))])
-                return
-            except RuntimeError as e:  # "batcher is closed" during drain
-                self._respond_json(503, {"error": str(e)})
-                return
-            try:
-                result = fut.result(timeout=server.request_timeout_s)
-            except Exception as e:
-                self._respond_json(500, {"error": f"{type(e).__name__}: {e}"})
-                return
-            if req.get("format", "wav") == "json":
-                self._respond_json(200, {
-                    "sample_rate": result.sample_rate,
-                    "image": result.image.tolist(),
-                    "pcm16_base64": base64.b64encode(
-                        np.ascontiguousarray(result.audio, dtype=np.int16).tobytes()
-                    ).decode(),
-                })
-            else:
-                self._respond(200, wav_bytes(result.audio, result.sample_rate), "audio/wav")
+    protocol_version = "HTTP/1.1"
+    timeout = 5  # idle keep-alive reads exit within this during shutdown
 
-    return Handler
+    def log_message(self, fmt, *args):  # route to logging, not stderr
+        logger.debug("%s " + fmt, self.client_address[0], *args)
+
+    def _respond(self, code: int, body: bytes, content_type: str, headers=()) -> None:
+        self.send_response(code)
+        self.send_header("Content-Type", content_type)
+        self.send_header("Content-Length", str(len(body)))
+        for k, v in headers:
+            self.send_header(k, v)
+        self.end_headers()
+        self.wfile.write(body)
+
+    def _respond_json(self, code: int, obj, headers=()) -> None:
+        self._respond(code, json.dumps(obj).encode(), "application/json", headers)
+
+    def do_GET(self):
+        if self.path == "/healthz":
+            self._respond_json(200, {
+                "status": "ok",
+                "sample_rate": self.server.sample_rate,
+                "tiers": list(self.server.batcher.tiers),
+                "batches_run": self.server.batcher.batches_run,
+                "requests_served": self.server.batcher.requests_served,
+                **self.server.batcher.latency_summary(),
+            })
+        else:
+            self._respond_json(404, {"error": f"unknown path {self.path}"})
+
+    def do_POST(self):
+        if self.path != "/generate":
+            self._respond_json(404, {"error": f"unknown path {self.path}"})
+            return
+        try:
+            length = int(self.headers.get("Content-Length", 0))
+            req = json.loads(self.rfile.read(length) or b"{}")
+            if not isinstance(req, dict):
+                raise ValueError("request body must be a JSON object")
+            encoding = req.get("encoding")
+            if encoding is not None:
+                encoding = np.asarray(encoding, dtype=np.float32)
+            audio = None
+            if req.get("audio_pcm16_base64"):
+                # Audio-to-audio: one 16-bit PCM clip at the model's
+                # sample rate (clients resample; /healthz reports it).
+                audio = np.frombuffer(
+                    base64.b64decode(req["audio_pcm16_base64"]), dtype=np.int16
+                ).astype(np.float32) / 32767.0
+            fut = self.server.batcher.submit(
+                seed=int(req.get("seed", 0)),
+                steps=req.get("steps"),
+                eta=req.get("eta"),
+                encoding=encoding,
+                audio=audio,
+                start_step=int(req.get("start_step", 0)),
+            )
+        except (ValueError, TypeError, json.JSONDecodeError) as e:
+            self._respond_json(400, {"error": str(e)})
+            return
+        except QueueFull as e:  # admission control: shed, don't queue
+            retry = max(1, int(round(e.retry_after_s)))
+            self._respond_json(429, {"error": str(e), "retry_after_s": retry},
+                               headers=[("Retry-After", str(retry))])
+            return
+        except RuntimeError as e:  # "batcher is closed" during drain
+            self._respond_json(503, {"error": str(e)})
+            return
+        try:
+            result = fut.result(timeout=self.server.request_timeout_s)
+        except Exception as e:
+            self._respond_json(500, {"error": f"{type(e).__name__}: {e}"})
+            return
+        if req.get("format", "wav") == "json":
+            self._respond_json(200, {
+                "sample_rate": result.sample_rate,
+                "image": result.image.tolist(),
+                "pcm16_base64": base64.b64encode(
+                    np.ascontiguousarray(result.audio, dtype=np.int16).tobytes()
+                ).decode(),
+            })
+        else:
+            self._respond(200, wav_bytes(result.audio, result.sample_rate), "audio/wav")
 
 
 def make_server(

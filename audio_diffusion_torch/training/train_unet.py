@@ -424,8 +424,11 @@ def make_train_step(cfg: TrainConfig, unet, scheduler, vae=None, conditional: bo
             loss = loss / world_size
         if events:
             events[2].record()
-            train_step.events.append(events)
+            recorded.append(events)
         return state, {"loss": loss, "ema_decay": ema_decay, "grad_norm": grad_norm}
 
-    train_step.events = []
+    # The events list is reached through its own cell, not through train_step: a function that names itself in
+    # its body is its own reference cycle, and with it the model and its gradients would wait for the collector.
+    recorded = []
+    train_step.events = recorded
     return train_step

@@ -46,13 +46,22 @@ Phases, one line each (plus detail lines):
              wav; 64 GroupNorm+SiLU and 6 attention launches per denoise step
              of every served batch; wav and json PCM identical; a seed bitwise
              the same with other companions in its tier and, at eta 0, at
-             tier 1 and tier 8 (the batcher runs batches with cuDNN off);
-             /healthz figures; warmup captures every program the traffic
-             replays (no capture after it). [tier] (the eager UNet,
-             ``fuse = False``): every torch call of a batch-8 UNet
-             forward re-run on row 0 alone, with cuDNN's defaults, with
-             cudnn.deterministic and with cuDNN off: the calls whose row
-             depends on the batch, the drift they cause, the forward's time
+             tier 1 and tier 8 (the batcher runs batches in its window:
+             cuDNN off); /healthz figures; warmup captures every program the
+             traffic replays (no capture after it). Then the same pipeline
+             reloaded through ``make_server(dtype="float32")``: seed 1000 at
+             tiers 32, 8 and 1 bitwise one spectrogram. [tier] (the eager
+             UNet and VAE, ``fuse = False``, in bf16 and in f32): every torch
+             call of a batch-8 and a batch-32 UNet forward and VAE decode
+             re-run on row 0 alone (the attention blocks in one call, as
+             before the f32 repair), and every module as the port runs it,
+             with cuDNN's defaults, with cudnn.deterministic and inside the
+             batcher's window: the calls whose row depends on the batch, the
+             drift they cause (none in the window, or the run fails), the
+             forward's time with and without the f32 row blocks.
+             [memory]: what a group left reserved before and after the cycle
+             collector (after the main, cond, train and dp groups); more than
+             0.25 GiB freed by the collector alone fails
   7. apps    the convenience layer at full width: the [main] pipeline saved in
              the diffusers layout and loaded through ``AudioDiffusion(dir,
              dtype="bfloat16", fused_groupnorm=True)``, 50 DDIM steps: a
@@ -125,7 +134,7 @@ Phases, one line each (plus detail lines):
              bitwise the original's, 64 GroupNorm+SiLU and 6 attention
              launches per denoise step; bytes and walls of each save and load
  17. cond-train  (group interop; run last) the conditional recipe (scripts.cond_selectivity_evidence)
-             at full width with 24 VAE and 300 UNet steps: the loss falls,
+             at full width with 24 VAE and 100 UNet steps: the loss falls,
              steps/s, peak memory, the selectivity, 44 GroupNorm+SiLU
              launches per UNet forward of its evaluation and no attention
 Then one JSON line with each kernel's launches (``launches``: the [main]
@@ -142,6 +151,7 @@ without a CUDA device it exits non-zero at once and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -212,7 +222,7 @@ ENCODER_TRAIN_BATCH = 16
 NATIVE_BATCH, NATIVE_SEED = 8, 301
 NATIVE_LAYOUTS = ("diffusers", "native", "safetensors")
 # [cond-train]: the recipe at full width with its 1,200 VAE and 6,000 UNet steps cut to fit the run's time
-COND_TRAIN_VAE_STEPS, COND_TRAIN_UNET_STEPS = 24, 300
+COND_TRAIN_VAE_STEPS, COND_TRAIN_UNET_STEPS = 24, 100
 COND_TRAIN_CLASSES, COND_TRAIN_EVAL_BATCH = 4, 8
 
 
@@ -785,69 +795,78 @@ def step_noise_ms(batch: int, hw, reps: int = 5) -> dict:
     return out
 
 
-def cross_tier_drift(pipe, seed: int, tier: int) -> dict:
-    """Where one row's result departs between batch 1 and batch ``tier``
-    (the row's noise the same, the rest other seeds): max abs difference of
-    one UNet forward at the first timestep, of the latents after ``STEPS``
-    DDIM steps, and of the uint8 spectrograms, in the pipeline's bf16 and in
-    f32 (TF32 off), with that max relative to the max |value|."""
+def f32_models(pipe):
+    """The pipeline's UNet and VAE rebuilt in f32 on the same weights: what an
+    f32 checkpoint serves."""
+    from audio_diffusion_torch.models import AutoencoderKL, UNet2D
+
+    unet = UNet2D(dataclasses.replace(pipe.unet.config, dtype="float32")).to(pipe.device).eval()
+    unet.load_state_dict(pipe.unet.state_dict())
+    vae = AutoencoderKL(dataclasses.replace(pipe.vqvae.config, dtype="float32")).to(pipe.device).eval()
+    vae.load_state_dict(pipe.vqvae.state_dict())
+    return unet, vae
+
+
+def tier_inputs(pipe, seed: int, batch: int):
+    """``batch`` rows of the batcher's per-seed noise (seeds ``seed``, ``seed + 1``, ...), on the card."""
     import numpy as np
     import torch
 
-    from audio_diffusion_torch.models import AutoencoderKL, UNet2D
-    from audio_diffusion_torch.pipelines.pipeline import LATENT_SCALE, postprocess_images
     from audio_diffusion_torch.serving.batcher import _noise_for_seed
 
     h, w = pipe.sample_hw
-    dev = pipe.device
-    x = torch.from_numpy(np.stack([_noise_for_seed(seed + i, h, w, 1) for i in range(tier)])).to(dev)
+    return torch.from_numpy(np.stack([_noise_for_seed(seed + i, h, w, 1) for i in range(batch)])).to(pipe.device)
+
+
+def cross_tier_drift(pipe, models: dict, seed: int, tiers) -> dict:
+    """Where one row's result departs between batch 1 and each batch of
+    ``tiers`` (the row's noise the same, the rest other seeds): max abs
+    difference of one UNet forward at the first timestep, of the latents after
+    ``STEPS`` DDIM steps, and of the uint8 spectrograms, for each ``name:
+    (unet, vae)`` of ``models``, with that max relative to the max |value|."""
+    import torch
+
+    from audio_diffusion_torch.pipelines.pipeline import LATENT_SCALE, postprocess_images
+
+    x = tier_inputs(pipe, seed, max(tiers))
     schedule = pipe.scheduler.schedule(STEPS)
     out = {}
-    for name in ("bf16", "f32"):
-        unet, vae = pipe.unet, pipe.vqvae
-        if name == "f32":
-            unet = UNet2D(dataclasses.replace(unet.config, dtype="float32")).to(dev).eval()
-            unet.load_state_dict(pipe.unet.state_dict())
-            vae = AutoencoderKL(dataclasses.replace(vae.config, dtype="float32")).to(dev).eval()
-            vae.load_state_dict(pipe.vqvae.state_dict())
+    for name, (unet, vae) in models.items():
         rows = {}
         with torch.inference_mode():
-            for b in (1, tier):
+            for b in (1, *tiers):
                 z = x[:b].contiguous()
                 for i, t in enumerate(schedule.timesteps):
-                    eps = unet(z, torch.full((), int(t), device=dev))
+                    eps = unet(z, torch.full((), int(t), device=pipe.device))
                     if i == 0:
                         first = eps[:1].clone()
                     z = pipe.scheduler.step(eps, int(t), z, schedule)
                 rows[b] = (first, z[:1].clone(), postprocess_images(vae.decode(z / LATENT_SCALE))[:1].int())
-        for i, what in enumerate(("first forward", "latents", "uint8")):
-            a, b = rows[1][i].float(), rows[tier][i].float()
-            d = (a - b).abs().max().item()
-            out[f"{name} {what}"] = (d, d / max(b.abs().max().item(), 1e-30))
-        del unet, vae
+        for tier in tiers:
+            for i, what in enumerate(("first forward", "latents", "uint8")):
+                a, b = rows[1][i].float(), rows[tier][i].float()
+                d = (a - b).abs().max().item()
+                out[f"{name} {what} b{tier}"] = (d, d / max(b.abs().max().item(), 1e-30))
     return out
 
 
-def tier_layers(pipe, seed: int, tier: int) -> dict:
+def batch_probe(fn, x, tier: int) -> dict:
     """Which operations give a row another result in a batch of ``tier`` than
-    alone, under the current cuDNN settings. One UNet forward (the first
-    timestep, the pipeline's dtype) at batch ``tier`` runs under a
+    alone, under the current backend settings: ``fn(x[:tier])`` runs under a
     TorchFunctionMode that re-runs every torch call whose tensor arguments
     and result have ``tier`` rows on row 0 alone (those arguments cut to
     their first row) and compares that with row 0 of the batched result.
-    Returns the first call in forward order whose row differs, and per
-    function the calls, the calls that differ, the largest difference and
-    the input shapes of the calls that differ."""
-    import numpy as np
+    Returns the calls in forward order whose row differs (function, input
+    shapes, max difference), and per function the calls, the calls that
+    differ and the largest difference. The kernels of ``csrc/`` are not torch
+    calls: [gn] and [attn] hold their rows."""
     import torch
     from torch.overrides import TorchFunctionMode
-
-    from audio_diffusion_torch.serving.batcher import _noise_for_seed
 
     def rows(a):
         return torch.is_tensor(a) and a.dim() > 0 and a.shape[0] == tier
 
-    per_func, first = {}, []
+    per_func, differ = {}, []
 
     class Probe(TorchFunctionMode):
         def __torch_function__(self, func, types, args=(), kwargs=None):
@@ -862,62 +881,197 @@ def tier_layers(pipe, seed: int, tier: int) -> dict:
                     alone = None
                 if torch.is_tensor(alone) and alone.shape == out[:1].shape:
                     d = (out[:1].float() - alone.float()).abs().max().item()
-                    st = per_func.setdefault(name, {"calls": 0, "differ": 0, "max_diff": 0.0, "shapes": set()})
+                    st = per_func.setdefault(name, {"calls": 0, "differ": 0, "max_diff": 0.0})
                     st["calls"] += 1
                     if d > 0:
                         st["differ"] += 1
                         st["max_diff"] = max(st["max_diff"], d)
-                        st["shapes"].add(tuple(next(a for a in args if rows(a)).shape[1:]))
-                        if not first:
-                            first.append((name, d))
+                        differ.append((name, tuple(tuple(a.shape) for a in args if torch.is_tensor(a)), d))
             return out
 
-    h, w = pipe.sample_hw
-    x = torch.from_numpy(np.stack([_noise_for_seed(seed + i, h, w, 1) for i in range(tier)])).to(pipe.device)
-    t = int(pipe.scheduler.schedule(STEPS).timesteps[0])
     with torch.inference_mode(), Probe():
-        pipe.unet(x, torch.full((), t, device=pipe.device))
-    return {"first": first[0] if first else None, "per_func": per_func}
+        fn(x[:tier].contiguous())
+    return {"differ": differ, "per_func": per_func}
+
+
+def module_probe(model, fn, x, tier: int) -> list:
+    """The module-level counterpart of :func:`batch_probe`: ``fn(x[:tier])``
+    runs with a forward hook on every submodule of ``model`` that re-runs the
+    module on row 0 of its inputs alone (through its own forward, so the f32
+    attention blocks pad that row as a lone request's is padded) and compares
+    that with row 0 of its batched output. Returns the modules whose row 0
+    differs: (name, type, max difference)."""
+    import torch
+
+    def rows(a):
+        return torch.is_tensor(a) and a.dim() > 0 and a.shape[0] == tier
+
+    differ, inside = [], []
+
+    def hook(name):
+        def run(mod, args, out):
+            if inside or not (rows(out) and args and rows(args[0])):
+                return
+            inside.append(name)  # the re-run's own submodules are not compared
+            try:
+                alone = mod(*(a[:1] if rows(a) else a for a in args))
+            finally:
+                inside.pop()
+            d = (out[:1].float() - alone.float()).abs().max().item()
+            if d > 0:
+                differ.append((name, type(mod).__name__, d))
+        return run
+
+    from audio_diffusion_torch.models.unet2d import SelfAttention2D, Transformer2D
+    from audio_diffusion_torch.models.vae import VAEAttention
+
+    # the attention blocks as a whole: inside, their modules see one block of rows, not the batch
+    attention = (SelfAttention2D, Transformer2D, VAEAttention)
+    blocks = [n + "." for n, m in model.named_modules() if isinstance(m, attention)]
+    handles = [m.register_forward_hook(hook(n)) for n, m in model.named_modules()
+               if n and not any(n.startswith(b) for b in blocks)]
+    try:
+        with torch.inference_mode():
+            fn(x[:tier].contiguous())
+    finally:
+        for h in handles:
+            h.remove()
+    return differ
+
+
+@contextlib.contextmanager
+def without_row_blocks():
+    """The port before its f32 repair: every attention block in one call, the
+    batch folded into its products' rows (``models.unet2d.in_row_blocks`` made
+    the identity)."""
+    from audio_diffusion_torch.models import unet2d, vae
+
+    saved = unet2d.in_row_blocks
+
+    def one_call(fn, *rows):
+        return fn(*rows)
+
+    unet2d.in_row_blocks = vae.in_row_blocks = one_call
+    try:
+        yield
+    finally:
+        unet2d.in_row_blocks = vae.in_row_blocks = saved
+
+
+def tier_layers(pipe, unet, vae, seed: int, tier: int) -> dict:
+    """One UNet forward (the first timestep) and one VAE decode at batch
+    ``tier`` on ``unet`` and ``vae``: :func:`batch_probe` of each with the
+    attention blocks in one call (the calls whose row depends on the batch),
+    and :func:`module_probe` of each as the port runs them."""
+    import torch
+
+    from audio_diffusion_torch.pipelines.pipeline import LATENT_SCALE
+
+    x = tier_inputs(pipe, seed, tier)
+    t = torch.full((), int(pipe.scheduler.schedule(STEPS).timesteps[0]), device=pipe.device)
+    fns = {"unet": (unet, lambda z: unet(z, t)), "decode": (vae, lambda z: vae.decode(z / LATENT_SCALE))}
+    with without_row_blocks():
+        calls = {what: batch_probe(fn, x, tier) for what, (_, fn) in fns.items()}
+    return {what: {"calls": calls[what], "modules": module_probe(model, fn, x, tier)}
+            for what, (model, fn) in fns.items()}
+
+
+def describe_probe(probe: dict) -> str:
+    """One line of a :func:`tier_layers` entry: the calls that differ with the
+    attention blocks in one call, then the modules that differ as the port runs."""
+    calls = probe["calls"]
+    checked = sum(v["calls"] for v in calls["per_func"].values())
+    if calls["differ"]:
+        text = (f"{len(calls['differ'])} of {checked} calls: "
+                + "; ".join(f"{n}{list(s)} {d:.3g}" for n, s, d in calls["differ"]))
+    else:
+        text = f"none of {checked} calls"
+    mods = probe["modules"]
+    return text + "; as the port runs, modules that differ: " + (
+        "; ".join(f"{n} ({k}) {d:.3g}" for n, k, d in mods) if mods else "none")
+
+
+TIER_PROBES = (SERVE_TIER, 32)  # [tier]: the batches a row alone is held against
 
 
 def phase_tier(pipe, card: str) -> dict:
-    """Queue 3 item 1: tier 1 against tier SERVE_TIER, layer by layer, with
-    cuDNN's defaults, with ``cudnn.deterministic``, and with cuDNN off
-    (``cudnn.benchmark`` stays False, TF32 is off), the end-to-end drift and
-    the batch-SERVE_TIER UNet forward's time (CUDA events) under each."""
+    """The serving contract on the card: a row alone against the same row in
+    batches of TIER_PROBES (outside the window: of the first), in the
+    pipeline's bf16 and in f32 (its UNet and VAE rebuilt in f32, TF32 off),
+    with cuDNN's defaults, with ``cudnn.deterministic`` and inside the
+    batcher's window (``utils.batch_invariant.window``: cuDNN off,
+    ``cudnn.benchmark`` False). Per setting and dtype (outside the window
+    bf16 only, where cuDNN makes any dtype's rows vary): every call and
+    module of one UNet forward and of one VAE decode whose row 0 differs
+    (tier_layers), the end-to-end drift after STEPS DDIM steps and the decode;
+    and per setting and dtype the UNet forward's time at batch 1, 8 and 32
+    (CUDA events around eager calls, and replayed from a CUDA graph). Inside
+    the window the uint8 spectrograms must not drift in either dtype."""
     import torch
+
+    from audio_diffusion_torch.utils import batch_invariant
 
     saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark, torch.backends.cudnn.enabled)
     pipe.fuse = False  # the probes call the eager UNet and hook every torch call
+    models = {"bf16": (pipe.unet, pipe.vqvae), "f32": f32_models(pipe)}
     h, w = pipe.sample_hw
     x = torch.randn((32, h, w, 1), generator=torch.Generator(device="cuda").manual_seed(9), device="cuda")
     t = torch.full((), 500, device="cuda")  # one timestep for every row, as the pipeline passes it
+
+    def forward_ms(unet):
+        with torch.inference_mode():
+            return {b: (cuda_time_ms(lambda: unet(x[:b], t), 10), graph_time_ms(lambda: unet(x[:b], t), 10))
+                    for b in (1, SERVE_TIER, 32)}
+
+    def times(ms):
+        return ", ".join(f"{b}: {e:.4f} / {g:.4f}" for b, (e, g) in ms.items())
+
     out = {}
     try:
-        for name, det, enabled in (("default", False, True), ("cudnn.deterministic", True, True),
-                                   ("cudnn off", False, False)):
+        for name, det in (("default", False), ("cudnn.deterministic", True), ("batcher window", False)):
+            window = name == "batcher window"
+            tiers = TIER_PROBES if window else TIER_PROBES[:1]  # outside the window cuDNN varies already at 8
             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det, False
-            torch.backends.cudnn.enabled = enabled
-            layers = tier_layers(pipe, 1000, SERVE_TIER)
-            drift = cross_tier_drift(pipe, 1000, SERVE_TIER)
-            with torch.inference_mode():
-                fwd_ms = {b: (cuda_time_ms(lambda: pipe.unet(x[:b], t), 10),
-                              graph_time_ms(lambda: pipe.unet(x[:b], t), 10)) for b in (1, SERVE_TIER, 32)}
-            out[name] = (layers, drift, fwd_ms)
-            first = layers["first"]
-            print(f"[tier] {name} (the eager UNet, pipe.fuse = False; cudnn.enabled {enabled}, benchmark False, "
-                  f"deterministic {det}; UNet forward ms, "
-                  "events / graph, at batch " + ", ".join(f"{b}: {e:.4f} / {g:.4f}" for b, (e, g) in fwd_ms.items())
-                  + "): first call whose row 0 differs "
-                  f"alone and in batch {SERVE_TIER}: {first[0] + f' (max diff {first[1]:.4g})' if first else 'none'}; "
-                  "calls whose row 0 differs, per function: " + "; ".join(
-                      f"{k} {v['differ']}/{v['calls']} (max {v['max_diff']:.4g}, input shapes "
-                      f"{sorted(v['shapes'])[:4]})" for k, v in layers["per_func"].items() if v["differ"])
-                  + f" (of {sum(v['calls'] for v in layers['per_func'].values())} calls checked)"
-                  + "; end to end: " + "; ".join(f"{k} {d:.4g}" for k, (d, _) in drift.items()) + f"  [{card}]")
+            with batch_invariant.window() if window else contextlib.nullcontext():
+                enabled = torch.backends.cudnn.enabled
+                drift = cross_tier_drift(pipe, models if window else {"bf16": models["bf16"]}, 1000, tiers)
+                for dtype, (unet, vae) in models.items():
+                    # outside the window f32 is timed only: cuDNN makes every dtype's row vary there
+                    layers = {tier: tier_layers(pipe, unet, vae, 1000, tier) for tier in tiers
+                              if window or dtype == "bf16"}
+                    fwd_ms = forward_ms(unet)
+                    out[name, dtype] = {"layers": layers, "fwd_ms": fwd_ms,
+                                        "drift": {k: v for k, v in drift.items() if k.startswith(dtype)}}
+                    print(f"[tier] {name}, {dtype} (eager; cudnn.enabled {enabled}, benchmark False, deterministic "
+                          f"{det}, TF32 off; UNet forward ms, events / graph, at batch {times(fwd_ms)})  [{card}]")
+                    if window:  # the port before its f32 repair, for the cost of the row blocks
+                        with without_row_blocks():
+                            out[name, dtype]["fwd_ms_one_call"] = forward_ms(unet)
+                        print(f"[tier]   {dtype} with every attention block in one call (before the f32 repair): "
+                              f"UNet forward ms, events / graph, at batch "
+                              f"{times(out[name, dtype]['fwd_ms_one_call'])}  [{card}]")
+                    for tier, probe in layers.items():
+                        for what in ("unet", "decode"):
+                            print(f"[tier]   {dtype} {what}, row 0 alone against batch {tier}, with the attention "
+                                  f"blocks in one call, calls that differ: " + describe_probe(probe[what]))
+                    if out[name, dtype]["drift"]:
+                        print(f"[tier]   {dtype} end to end (max abs, relative): " + "; ".join(
+                            f"{k} {d:.4g} ({r:.3g})" for k, (d, r) in out[name, dtype]["drift"].items()))
+                if window:
+                    with without_row_blocks():
+                        before = cross_tier_drift(pipe, {"f32": models["f32"]}, 1000, TIER_PROBES)
+                    out[name, "f32"]["drift_one_call"] = before
+                    print("[tier]   f32 end to end with every attention block in one call (before the f32 repair): "
+                          + "; ".join(f"{k} {d:.4g} ({r:.3g})" for k, (d, r) in before.items()))
+            if window:
+                moved = {k: d for k, (d, _) in drift.items() if k.split()[1] == "uint8" and d}
+                if moved:
+                    fail(f"[tier] inside the batcher's window a row's uint8 spectrogram depends on its batch: {moved}")
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark, torch.backends.cudnn.enabled = saved
         pipe.fuse = True
+    print(f"[tier] ok: inside the batcher's window row 0's uint8 spectrogram is the same alone and in batches "
+          f"{TIER_PROBES}, in bf16 and in f32  [{card}]")
     return out
 
 
@@ -1050,6 +1204,67 @@ def phase_serve(pipe, card: str):
     finally:
         server.stop()
     return launches
+
+
+F32_SERVE_TIERS = (32, SERVE_TIER, 1)  # [serve] in f32: one batch at each, seed 1000 among other companions
+
+
+def phase_serve_f32(pipe, card: str) -> None:
+    """[serve] in f32 (Queue 3 item 1): the [main] pipeline saved and reloaded
+    through ``make_server(dtype="float32", fused_groupnorm=True)``, tiers up to
+    32, eta 0. Seed 1000 sent in one batch of each of F32_SERVE_TIERS, with
+    other companions each time, must give one spectrogram, bitwise. Every
+    batch launches 64 GroupNorm+SiLU kernels per denoise step and 6 attention
+    kernels per denoise step for each block of ROW_BLOCK rows (f32 attention
+    runs in row blocks), twice in a batch that captures its program (the
+    eager warm-up, then the replay)."""
+    import tempfile
+
+    import numpy as np
+
+    from audio_diffusion_torch.models.unet2d import ROW_BLOCK
+    from audio_diffusion_torch.ops import attention as at
+    from audio_diffusion_torch.ops import fused_groupnorm as gn
+    from audio_diffusion_torch.serving import make_server
+
+    with tempfile.TemporaryDirectory() as d:
+        pipe.save_pretrained(d)
+        server = make_server(d, dtype="float32", fused_groupnorm=True, device="cuda", port=0, max_batch=32,
+                             max_wait_ms=2000, steps=STEPS)
+    served = server.batcher.pipe
+    if (served.unet.config.dtype, served.vqvae.config.dtype) != ("float32", "float32"):
+        fail(f"[serve] f32: make_server loaded {served.unet.config.dtype} / {served.vqvae.config.dtype}")
+    counters = (gn.group_norm_silu, at.flash_mha)
+    server.start()
+    images, notes = {}, []
+    try:
+        for tier in F32_SERVE_TIERS:
+            programs = set(served._compiled)
+            for c in counters:
+                c.launches = 0
+            t0 = time.perf_counter()
+            images[tier] = _one_batch_images(
+                server, [{"seed": 1000}] + [{"seed": 3000 + 100 * tier + i} for i in range(1, tier)], tier,
+                "[serve] f32")[0]
+            wall = time.perf_counter() - t0
+            new = [served._compiled[k] for k in set(served._compiled) - programs]
+            runs = 1 + len(new)
+            want = {"group_norm_silu": runs * 64 * STEPS, "flash_mha": runs * 6 * STEPS * -(-tier // ROW_BLOCK)}
+            launches = {c.__name__: c.launches for c in counters}
+            if launches != want:
+                fail(f"[serve] f32 tier {tier}: launches {launches}, expected {want}")
+            captured = "; ".join(f"an eager warm-up of {p.warmup_seconds:.4f} s and a capture of "
+                                 f"{p.capture_seconds:.4f} s" for p in new)
+            notes.append(f"tier {tier} {wall:.4f} s ({captured or 'a replay'}, launches {launches})")
+    finally:
+        server.stop()
+    for tier in F32_SERVE_TIERS[:-1]:
+        if not np.array_equal(images[tier], images[1]):
+            diff = np.abs(images[tier].astype(np.int32) - images[1].astype(np.int32))
+            fail(f"[serve] f32 eta 0: seed 1000 alone (tier 1) and at tier {tier} differ: max uint8 diff "
+                 f"{diff.max()}, {100 * (diff > 0).mean():.2f}% of pixels")
+    print(f"[serve] f32 ok: make_server(dtype=\"float32\") at {STEPS} steps, eta 0: seed 1000 bitwise the same "
+          f"spectrogram at tiers {F32_SERVE_TIERS} with other companions; " + "; ".join(notes) + f"  [{card}]")
 
 
 def phase_layers(pipe, card: str):
@@ -2814,11 +3029,15 @@ def phase_cond_train(card: str, root: Path) -> dict:
 PHASE_GROUPS = ("kernels", "main", "apps", "cond", "train", "dp", "interop")
 
 
+MEMORY_CYCLE_BOUND = 1 << 28  # 0.25 GiB: what gc.collect() may free after a group
+
+
 def release_device_memory(what: str) -> None:
-    """Free what a group of phases left behind before the next one measures:
-    pipelines held only in reference cycles (a stopped server's handlers and
-    batcher) keep their CUDA graphs and graph pools until the cycle collector
-    runs, so collect, return the cached blocks, and print what stays."""
+    """Return the cached blocks a group of phases left behind before the next
+    one measures, and print what stays reserved before and after the cycle
+    collector runs. A stopped server frees its pipeline, CUDA graphs and graph
+    pool, and a trainer its model and state, by reference counting; more than
+    MEMORY_CYCLE_BOUND freed by the collector alone fails the run."""
     import gc
     import threading
 
@@ -2828,9 +3047,13 @@ def release_device_memory(what: str) -> None:
     held = torch.cuda.memory_reserved()
     gc.collect()
     torch.cuda.empty_cache()
+    freed = held - torch.cuda.memory_reserved()
     print(f"[memory] after {what}: reserved {held / 2**30:.4f} GiB, {torch.cuda.memory_reserved() / 2**30:.4f} GiB "
           f"once reference cycles are collected (allocated {torch.cuda.memory_allocated() / 2**30:.4f} GiB), "
           f"{threading.active_count()} threads")
+    if freed > MEMORY_CYCLE_BOUND:
+        fail(f"[memory] after {what}: {freed / 2**30:.4f} GiB were held only by reference cycles (bound "
+             f"{MEMORY_CYCLE_BOUND / 2**30:.2f} GiB): what the group dropped outlived its last reference")
 
 
 def main(argv=None) -> int:
@@ -2839,8 +3062,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive the port's paths on one GPU and check them.")
     ap.add_argument("--only", default=",".join(PHASE_GROUPS),
                     help="comma-separated phase groups for a partial run (kernels: gn, attn, attn-sweep, ref; main: "
-                         "main, layers, profile, fused, fidelity, serve, tier; apps: apps, prepare, golden; cond; "
-                         "train: "
+                         "main, layers, profile, fused, fidelity, serve, serve f32, tier; apps: apps, prepare, "
+                         "golden; cond; train: "
                          "attn-grad, train, train-pixel, train-vae; dp: dp, shard, encoder-train; interop: native, "
                          "cond-train); a partial run prints no result lines")
     # one rank of [dp]: the script re-runs itself with these
@@ -2884,6 +3107,7 @@ def main(argv=None) -> int:
         at_err, at_t = phase_attention(card)
         phase_attention_sweep(card)
         phase_unet_reference()
+        print(f"[time] the kernels group done at {time.perf_counter() - t_start:.1f} s")
     if {"main", "apps", "interop"} & only:
         t0 = time.perf_counter()
         pipe = build_pipeline()
@@ -2895,10 +3119,13 @@ def main(argv=None) -> int:
         phase_fused(pipe, card, phase_profile(pipe, card))
         phase_fidelity(pipe, card)
         serve_launches = phase_serve(pipe, card)
+        phase_serve_f32(pipe, card)
+        print(f"[time] the main group done at {time.perf_counter() - t_start:.1f} s")
     if "apps" in only:
         apps_launches = phase_apps(pipe, card)
         phase_prepare(card)
         phase_golden(card)
+        print(f"[time] the apps group done at {time.perf_counter() - t_start:.1f} s")
     if "interop" in only:
         import tempfile
 
@@ -2907,6 +3134,7 @@ def main(argv=None) -> int:
     if {"main", "apps", "interop"} & only:
         del pipe
         release_device_memory("the latent-256 pipeline's groups")
+        print(f"[time] the latent-256 pipeline's groups done at {time.perf_counter() - t_start:.1f} s")
     if "tier" in only and "main" not in only:
         phase_tier(build_pipeline(), card)
         torch.cuda.empty_cache()
@@ -2923,6 +3151,7 @@ def main(argv=None) -> int:
         phase_cond_serve(cond_pipe, encodings, card)
         del cond_pipe
         release_device_memory("the conditional group")
+        print(f"[time] the conditional group done at {time.perf_counter() - t_start:.1f} s")
     if "train" in only:
         import tempfile
 
@@ -2932,6 +3161,8 @@ def main(argv=None) -> int:
             phase_train_profile(card)
             phase_train_pixel(card)
             phase_train_vae(card, Path(d) / "slices")
+        release_device_memory("the train group")
+        print(f"[time] the train group done at {time.perf_counter() - t_start:.1f} s")
     if "dp" in only:
         import tempfile
 
@@ -2940,6 +3171,8 @@ def main(argv=None) -> int:
     if "dp" in only or "shard" in only:
         shard_launches = phase_shard(card)
         phase_encoder_train(card)
+        release_device_memory("the dp group")
+        print(f"[time] the dp group done at {time.perf_counter() - t_start:.1f} s")
     if "interop" in only:
         import tempfile
 

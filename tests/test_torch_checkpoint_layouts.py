@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_models import COND_KW, random_params
+from test_torch_pipeline import one_intra_op_thread  # noqa: F401 (autouse: one intra-op thread)
 from test_torch_pipeline import UNET_KW, VAE_KW, _assert_uint8_close, _noise, _pair, _state_dicts_equal
 
 from audio_diffusion_torch.models import UNet2D as TorchUNet

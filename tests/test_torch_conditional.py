@@ -1,6 +1,8 @@
 """Port parity of the conditional tier on the CPU: the cross-attention
-modules, the conditional UNet, the conditional latent pipeline with
-``encoding=``, and its diffusers-layout save/load in both directions.
+modules, the conditional UNet, and the conditional latent pipeline with
+``encoding=`` and its guards. Audio-to-audio with an encoding and the
+diffusers-layout save/load in both directions are in
+test_torch_conditional_pipeline.py, on this file's pipelines.
 
 The same seeded numpy parameters and inputs go through the flax module and
 the port's (kernels through their plain versions), in f32. Tolerances:
@@ -11,7 +13,6 @@ round differently in the last f32 bit), and int16 audio within 2 LSB given
 one spectrogram and Griffin-Lim phase."""
 
 import dataclasses
-import json
 
 import jax
 import jax.numpy as jnp
@@ -19,8 +20,8 @@ import numpy as np
 import pytest
 import torch
 from test_torch_models import random_params
-from test_torch_pipeline import (FULL, VAE_KW, _assert_uint8_close, _clips, _jax_draws, _noise, _pair,
-                                 _state_dicts_equal)
+from test_torch_pipeline import one_intra_op_thread  # noqa: F401 (autouse: one intra-op thread)
+from test_torch_pipeline import VAE_KW, _jax_draws, _noise, _pair
 
 from audio_diffusion_torch.models import UNet2D as TorchUNet
 from audio_diffusion_torch.models import UNetConfig as TorchUNetConfig
@@ -33,9 +34,7 @@ from audio_diffusion_torch.utils import convert
 from audio_diffusion_torch.utils.convert import to_torch, unet_state_dict
 from audio_diffusion_tpu.models import UNet2D, UNetConfig, conditional_config
 from audio_diffusion_tpu.models import unet2d as ju
-from audio_diffusion_tpu.models.vae import AutoencoderKL
-from audio_diffusion_tpu.pipelines.pipeline import AudioDiffusionPipeline
-from audio_diffusion_tpu.utils.torch_export import export_unet, save_pipeline_torch
+from audio_diffusion_tpu.utils.torch_export import export_unet
 
 # The tiny conditional UNet of tests/test_graft_entry.py:59-65, cross dim 12.
 COND_KW = dict(sample_size=(16, 16), block_out_channels=(8, 16),
@@ -154,8 +153,9 @@ def test_conditional_config_and_guards():
 
 # ------------------------------------------------------------------- pipeline
 
-@pytest.fixture(scope="module")
-def cond_pipes():
+def _cond_pipes():
+    """The tiny conditional latent pipeline in both packages, and the JAX
+    package's answer to one encoded request."""
     jpipe, tpipe = _pair(COND_KW, VAE_KW)
     noise = _noise(30)
     enc = np.random.default_rng(31).standard_normal((2, 1, 12)).astype(np.float32)
@@ -163,6 +163,11 @@ def cond_pipes():
     raw_j, audio_j = jpipe(noise=jnp.asarray(noise), key=key, encoding=jnp.asarray(enc), steps=3,
                            return_arrays=True, pcm16=True)
     return jpipe, tpipe, noise, enc, key, np.asarray(raw_j), np.asarray(audio_j)
+
+
+@pytest.fixture(scope="module")
+def cond_pipes():
+    return _cond_pipes()
 
 
 def test_conditional_pipeline_matches_jax(cond_pipes):
@@ -175,19 +180,6 @@ def test_conditional_pipeline_matches_jax(cond_pipes):
     audio_from_j = pcm16_quantize(tpipe.mel.images_to_audio(torch.from_numpy(raw_j.copy()), phase=phase)).numpy()
     assert np.abs(audio_from_j.astype(np.int32) - audio_j.astype(np.int32)).max() <= 2
     np.testing.assert_array_equal(audio_t.numpy(), audio_from_j)
-
-
-@pytest.mark.parametrize("mode", ["batched", "single masked"])
-def test_conditional_audio_to_audio_matches_jax(cond_pipes, mode):
-    jpipe, tpipe, noise, enc, _, _, _ = cond_pipes
-    clips = _clips(33, 2)
-    kw = dict(raw_audio=clips if mode == "batched" else clips[0, : FULL - 100], start_step=1, steps=3,
-              mask_start_secs=0.1 if "masked" in mode else 0.0, return_arrays=True)
-    key = jax.random.key(34)
-    raw_j, _ = jpipe(noise=jnp.asarray(noise), key=key, encoding=jnp.asarray(enc), **kw)
-    phase, eps, _ = _jax_draws(key, 2, (16, 16, 1), 0)
-    raw_t, _ = tpipe(noise=torch.from_numpy(noise), encoding=enc, gl_phase=phase, posterior_eps=eps, **kw)
-    _assert_uint8_close(raw_t.numpy(), np.asarray(raw_j))
 
 
 def test_conditional_pipeline_encoding_guards(cond_pipes):
@@ -218,54 +210,3 @@ def test_conditional_pipeline_encoding_guards(cond_pipes):
                            tpipe.mel, tpipe.scheduler, device="cpu")
     with pytest.raises(ValueError, match="unconditional"):
         uncond(batch_size=1, steps=2, encoding=np.ones((1, 1, 12)))
-
-
-def _shapes_only(monkeypatch):
-    """The JAX import route checks converted weights against a template from
-    flax's init, which only needs its shapes (as in test_torch_pipeline)."""
-    for cls in (UNet2D, AutoencoderKL):
-        def shapes_only(self, key, init=cls.init_params):
-            return jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), jax.eval_shape(lambda k: init(self, k), key))
-
-        monkeypatch.setattr(cls, "init_params", shapes_only)
-
-
-def _as_conv1x1(directory):
-    """Rewrite a saved conditional UNet as diffusers writes it with
-    ``use_linear_projection: false``: Transformer2D proj_in/proj_out as 1x1 convs."""
-    unet_dir = directory / "unet"
-    sd = torch.load(unet_dir / "diffusion_pytorch_model.bin", weights_only=True)
-    n = 0
-    for k in list(sd):
-        if k.endswith((".proj_in.weight", ".proj_out.weight")):
-            sd[k] = sd[k][:, :, None, None].clone()
-            n += 1
-    torch.save(sd, unet_dir / "diffusion_pytorch_model.bin")
-    cfg = json.loads((unet_dir / "config.json").read_text())
-    (unet_dir / "config.json").write_text(json.dumps(dict(cfg, use_linear_projection=False)))
-    return n
-
-
-@pytest.mark.parametrize("direction", ["jax to port", "port to jax", "port to both as 1x1 convs"])
-def test_conditional_save_load_across_packages(cond_pipes, direction, tmp_path, monkeypatch):
-    _shapes_only(monkeypatch)
-    jpipe, tpipe, noise, enc, key, raw_j, _ = cond_pipes
-    if direction == "jax to port":
-        save_pipeline_torch(jpipe, str(tmp_path))
-    else:
-        tpipe.save_pretrained(str(tmp_path))
-        index = json.loads((tmp_path / "model_index.json").read_text())
-        assert index["unet"] == ["diffusers", "UNet2DConditionModel"]
-        if "1x1" in direction:
-            assert _as_conv1x1(tmp_path) == 2 * 4  # proj_in and proj_out: 1 down, 1 mid, 2 up Transformer2D
-    if direction != "port to jax":
-        loaded = TorchPipeline.from_pretrained(str(tmp_path), device="cpu")
-        _state_dicts_equal(loaded.unet, tpipe.unet)
-        assert loaded.unet.config == tpipe.unet.config
-        raw_t, _ = loaded(noise=torch.from_numpy(noise), encoding=enc, steps=3, return_arrays=True)
-        np.testing.assert_array_equal(raw_t.numpy(), raw_j)
-    if direction != "jax to port":
-        loaded_j = AudioDiffusionPipeline.from_pretrained(str(tmp_path))
-        assert loaded_j.unet.config == jpipe.unet.config
-        raw, _ = loaded_j(noise=jnp.asarray(noise), key=key, encoding=jnp.asarray(enc), steps=3, return_arrays=True)
-        np.testing.assert_array_equal(np.asarray(raw), raw_j)

@@ -643,6 +643,107 @@ def test_graph_replay_is_bitwise_the_eager_request(eta):
     assert launches == eager_launches == tuple(prog.launches[0]) and eager_launches[0] > 0 and eager_launches[1] > 0
 
 
+def _full_width_f32_pipeline():
+    """The latent-256 pipeline at full width (the 6-block UNet over 32x32
+    latents, the 256 VAE, Mel 256x256 hop 512) in f32, seeded random weights."""
+    from audio_diffusion_torch.mel import Mel
+    from audio_diffusion_torch.models import AutoencoderKL, UNet2D, VAEConfig, unconditional_config
+    from audio_diffusion_torch.pipelines import AudioDiffusionPipeline
+    from audio_diffusion_torch.schedulers import DDIMScheduler
+
+    vae = AutoencoderKL(VAEConfig(sample_size=256)).init_params(torch.Generator().manual_seed(1))
+    unet = UNet2D(unconditional_config(sample_size=(32, 32), fused_groupnorm=True)).init_params(
+        torch.Generator().manual_seed(0))
+    return AudioDiffusionPipeline(unet, Mel(x_res=256, y_res=256, hop_length=512, device="cuda"), DDIMScheduler(),
+                                  vae, device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", ["SelfAttention2D", "Transformer2D", "VAEAttention"])
+def test_f32_attention_block_rows_do_not_depend_on_the_batch(block):
+    """Each attention block at its widths on the latent-256 and conditional
+    paths, f32 with TF32 off: row 0 alone and in batches of 2 to 33 (across
+    whole and partial row blocks) gives the same bits."""
+    _cuda()
+    from audio_diffusion_torch.models import unet2d
+    from audio_diffusion_torch.models.vae import VAEAttention
+
+    make, shape, context = {
+        "SelfAttention2D": (lambda: unet2d.SelfAttention2D(512, 8, 32), (512, 2, 2), None),
+        "Transformer2D": (lambda: unet2d.Transformer2D(512, 8, 64, 100, 32), (512, 8, 8), (1, 100)),
+        "VAEAttention": (lambda: VAEAttention(512, 32), (512, 32, 32), None)}[block]
+    module = make()
+    unet2d.init_flax_defaults(module, torch.Generator().manual_seed(0))
+    module = module.to("cuda").eval()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn((33, *shape), generator=g, device="cuda")
+    args = (x,) if context is None else (x, torch.randn((33, *context), generator=g, device="cuda"))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            alone = module(*(a[:1] for a in args))
+            for b in (2, 7, 8, 9, 16, 32, 33):
+                assert torch.equal(module(*(a[:b] for a in args))[:1], alone), b
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+@pytest.mark.cuda
+def test_full_width_f32_request_is_bitwise_the_same_alone_and_in_a_batch_of_8():
+    """The serving contract in f32 on the card: through DynamicBatcher, 50
+    DDIM steps at eta 0, TF32 off, seed 7 alone (tier 1) and among 7 other
+    requests (tier 8) gives one spectrogram, bit for bit."""
+    _cuda()
+    from audio_diffusion_torch.serving import DynamicBatcher
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    batcher = DynamicBatcher(_full_width_f32_pipeline(), max_batch=8, max_wait_ms=2000, steps=50)
+    try:
+        solo = batcher.submit(seed=7).result(timeout=600)
+        futs = [batcher.submit(seed=s) for s in (7, *range(100, 107))]
+        batched = [f.result(timeout=600) for f in futs]
+    finally:
+        batcher.close()
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    assert [(s["n"], s["tier"]) for s in batcher.stats] == [(1, 1), (8, 8)]
+    assert solo.image.shape == (256, 256) and solo.image.std() > 0
+    np.testing.assert_array_equal(solo.image, batched[0].image)
+    assert not np.array_equal(batched[0].image, batched[1].image)
+
+
+@pytest.mark.cuda
+def test_a_stopped_server_frees_its_device_memory_without_the_collector():
+    """A server that captured a program on the card and was stopped: once the
+    caller drops it, its pipeline, CUDA graph and graph pool are freed by
+    reference counting, with the cycle collector off."""
+    _cuda()
+    import gc
+    import weakref
+
+    from audio_diffusion_torch.serving import AudioDiffusionServer
+
+    gc.collect()
+    gc.disable()
+    try:
+        pipe = _tiny_fused_pipeline()
+        alive = weakref.ref(pipe)
+        server = AudioDiffusionServer(pipe, port=0, max_batch=2, max_wait_ms=10, steps=2)
+        assert server.batcher.submit(seed=1).result(timeout=300).image.shape == (16, 16)
+        assert next(iter(pipe._compiled.values())).graphs
+        server.stop()
+        del server, pipe
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_reserved()
+        assert alive() is None
+    finally:
+        gc.enable()
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_reserved() == held  # the collector had nothing of it left to free
+
+
 @pytest.mark.cuda
 def test_one_capture_per_signature_and_outputs_outlive_the_next_replay():
     _cuda()

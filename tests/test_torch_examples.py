@@ -28,7 +28,9 @@ TINY_COND = dict(TINY, down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
 
 
 def run_module(module, args, cwd, timeout=600):
-    env = {**os.environ, "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    # One intra-op thread: the examples' tiny ops gain nothing from more, and beside other test processes on every
+    # core a pool of threads per op mostly waits.
+    env = {**os.environ, "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH", ""), "OMP_NUM_THREADS": "1"}
     proc = subprocess.run([sys.executable, "-m", f"audio_diffusion_torch.{module}", *args, "--device", "cpu"],
                           cwd=cwd, env=env, capture_output=True, text=True, timeout=timeout)
     assert proc.returncode == 0, (f"{module} failed\n--- stdout ---\n{proc.stdout[-3000:]}"
@@ -54,8 +56,11 @@ def audio_dir(tmp_path_factory):
 @pytest.fixture(scope="module")
 def tiny_pipe_dirs(tmp_path_factory):
     """A tiny DDPM pipeline standing in for a published model id, saved in
-    both layouts (DDPM so that test_model also takes its DDIM swap)."""
-    pipe = _tiny_pipe(TINY, 16, 16, DDPMScheduler(SchedulerConfig(num_train_timesteps=100)))
+    both layouts (DDPM so that test_model also takes its DDIM swap). 50
+    training timesteps: DDPM's default of one step per timestep, and the
+    fewest under which test_model's 50-step DDIM section still has a
+    timestep per step."""
+    pipe = _tiny_pipe(TINY, 16, 16, DDPMScheduler(SchedulerConfig(num_train_timesteps=50)))
     dirs = {}
     for layout in diffusers_io.LAYOUTS:
         dirs[layout] = str(tmp_path_factory.mktemp(layout))

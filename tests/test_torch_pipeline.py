@@ -1,16 +1,15 @@
 """Port parity of the pipeline: tiny latent and pixel pipelines (Mel 32x32,
 n_iter 4, 3 steps, batch 2) in both packages on the CPU, fed the same
 weights, noise, posterior draw, step noise and Griffin-Lim phase; the
-audio-to-audio modes, masks, stochastic sampling, DDPM, DDIM inversion,
-slerp and the diffusers-layout save/load in both directions; and that the
-port imports no JAX.
+audio-to-audio modes, masks, stochastic sampling and DDPM; and that the
+port imports no JAX. DDIM inversion, slerp, the diffusers-layout save/load
+and sharded inference are in test_torch_pipeline_interop.py, on these
+helpers.
 
 Tolerances: uint8 spectrograms differ by at most 1 on at most 0.5% of the
 pixels; int16 audio by at most 2 LSB given one spectrogram and phase;
 scheduler math 1e-6."""
 
-import dataclasses
-import json
 import os
 import subprocess
 import sys
@@ -40,7 +39,6 @@ from audio_diffusion_tpu.models.vae import AutoencoderKL, VAEConfig
 from audio_diffusion_tpu.pipelines.pipeline import AudioDiffusionPipeline
 from audio_diffusion_tpu.pipelines.pipeline import postprocess_images as jax_postprocess
 from audio_diffusion_tpu.schedulers import DDIMScheduler, DDPMScheduler, SchedulerConfig
-from audio_diffusion_tpu.utils.torch_export import save_pipeline_torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 UNET_KW = dict(sample_size=(16, 16), block_out_channels=(32, 64),
@@ -71,14 +69,20 @@ def _pair(unet_kw, vae_kw=None, scheduler="ddim"):
     return jpipe, tpipe
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_intra_op_thread():
+    """One torch intra-op thread for a module of tiny-model tests (this one and
+    those that import this fixture): their ops are small, and beside the other
+    test processes that share every core a pool of threads per op mostly waits."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def pipes():
     return _pair(UNET_KW, VAE_KW)
-
-
-@pytest.fixture(scope="module")
-def pixel_pipes():
-    return _pair(dict(UNET_KW, sample_size=(32, 32)))
 
 
 def _jax_draws(key, batch, latent_shape, steps):
@@ -104,6 +108,13 @@ def _assert_uint8_close(got, want):
 
 def _noise(seed, shape=(2, 16, 16, 1)):
     return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+
+
+def _state_dicts_equal(a, b):
+    sa, sb = a.state_dict(), b.state_dict()
+    assert sa.keys() == sb.keys()
+    for k in sa:
+        torch.testing.assert_close(sa[k], sb[k], rtol=0, atol=0)
 
 
 def test_latent_pipeline_matches_jax(pipes):
@@ -178,101 +189,6 @@ def test_stochastic_sampling_matches_jax(scheduler, eta):
     assert tpipe.get_default_steps() == jpipe.get_default_steps()
 
 
-def test_encode_and_slerp_match_jax(pipes):
-    """DDIM inversion over the VAE posterior mode, fed back through noise=."""
-    jpipe, tpipe = pipes
-    images = jpipe(noise=jnp.asarray(_noise(19)), steps=3, key=jax.random.key(20)).images
-    enc_j = np.asarray(jpipe.encode(images, steps=3))
-    enc_t = tpipe.encode(images, steps=3).numpy()
-    assert enc_t.shape == enc_j.shape == (2, 16, 16, 1)
-    np.testing.assert_allclose(enc_t, enc_j, atol=1e-4 * np.abs(enc_j).max())
-
-    mixed_j = np.asarray(AudioDiffusionPipeline.slerp(enc_j[:1], enc_j[1:], 0.3))
-    mixed_t = TorchPipeline.slerp(torch.from_numpy(enc_j[:1]), torch.from_numpy(enc_j[1:]), 0.3).numpy()
-    np.testing.assert_allclose(mixed_t, mixed_j, atol=1e-6)
-
-    noise = np.concatenate([enc_j, mixed_j])
-    raw_j, _ = jpipe(noise=jnp.asarray(noise), steps=3, return_arrays=True)
-    raw_t, _ = tpipe(noise=torch.from_numpy(noise), steps=3, return_arrays=True)
-    _assert_uint8_close(raw_t.numpy(), raw_j)
-
-
-def _state_dicts_equal(a, b):
-    sa, sb = a.state_dict(), b.state_dict()
-    assert sa.keys() == sb.keys()
-    for k in sa:
-        torch.testing.assert_close(sa[k], sb[k], rtol=0, atol=0)
-
-
-@pytest.mark.parametrize("kind", ["latent", "pixel"])
-def test_diffusers_layout_loads_across_packages(pipes, pixel_pipes, kind, tmp_path, monkeypatch):
-    """JAX ``save_pipeline_torch`` -> port ``from_pretrained``, and port
-    ``save_pretrained`` -> JAX ``from_pretrained`` (its torch-import route):
-    each loaded pipeline gives the other package's spectrograms."""
-    # The JAX import route checks the converted weights against a template
-    # from flax's init, which only needs its shapes; flax's own init runs op
-    # by op on the CPU (~30 s for the VAE), so the template is made from
-    # jax.eval_shape instead.
-    for cls in (UNet2D, AutoencoderKL):
-        def shapes_only(self, key, init=cls.init_params):
-            return jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), jax.eval_shape(lambda k: init(self, k), key))
-
-        monkeypatch.setattr(cls, "init_params", shapes_only)
-    jpipe, tpipe = pipes if kind == "latent" else pixel_pipes
-    h, w = tpipe.sample_hw
-    noise = _noise(21, (2, h, w, 1))
-    raw_j, _ = jpipe(noise=jnp.asarray(noise), steps=3, return_arrays=True)
-    raw_t, _ = tpipe(noise=torch.from_numpy(noise), steps=3, return_arrays=True)
-
-    save_pipeline_torch(jpipe, str(tmp_path / "from_jax"))
-    loaded_t = TorchPipeline.from_pretrained(str(tmp_path / "from_jax"), fused_groupnorm=True, device="cpu")
-    _state_dicts_equal(loaded_t.unet, tpipe.unet)
-    assert loaded_t.unet.config == tpipe.unet.config and loaded_t.mel.config == tpipe.mel.config
-    assert (loaded_t.vqvae is None) == (kind == "pixel")
-    _assert_uint8_close(loaded_t(noise=torch.from_numpy(noise), steps=3, return_arrays=True)[0].numpy(), raw_j)
-
-    tpipe.save_pretrained(str(tmp_path / "from_torch"))
-    with open(tmp_path / "from_torch" / "model_index.json") as fh:
-        assert json.load(fh)["_class_name"] == "AudioDiffusionPipeline"
-    loaded_j = AudioDiffusionPipeline.from_pretrained(str(tmp_path / "from_torch"))
-    assert dataclasses.replace(loaded_j.unet.config, fused_groupnorm=True) == jpipe.unet.config
-    _assert_uint8_close(raw_t.numpy(), np.asarray(loaded_j(noise=jnp.asarray(noise), steps=3,
-                                                           return_arrays=True)[0]))
-    overridden = TorchPipeline.from_pretrained(str(tmp_path / "from_torch"), dtype="bfloat16", device="cpu")
-    assert overridden.unet.config.dtype == "bfloat16" and not overridden.unet.config.fused_groupnorm
-    if kind == "latent":
-        assert overridden.vqvae.config.dtype == "bfloat16"
-        _state_dicts_equal(overridden.vqvae, tpipe.vqvae)
-
-
-def test_pipeline_output_and_unported_options(pipes, tmp_path):
-    _, tpipe = pipes
-    out = tpipe(batch_size=1, steps=2, generator=torch.Generator().manual_seed(0))
-    assert out.raw_images.shape == (1, 32, 32) and out.images[0].size == (32, 32)
-    assert out.audios[0].shape == (31 * 512,) and np.isfinite(out.audios[0]).all()
-    images, (sr, audios) = tpipe(batch_size=1, steps=2, return_dict=False)
-    assert sr == 22050 and len(images) == len(audios) == 1
-    raw = tpipe(batch_size=1, steps=2, return_images_only=True)
-    np.testing.assert_array_equal(raw, out.raw_images)  # the same seed-0 generator draws the same noise
-    nchw = tpipe(noise=torch.from_numpy(_noise(22)).permute(0, 3, 1, 2), steps=2, return_images_only=True)
-    np.testing.assert_array_equal(nchw, tpipe(noise=torch.from_numpy(_noise(22)), steps=2, return_images_only=True))
-    with pytest.raises(ValueError, match="unconditional"):
-        tpipe(batch_size=1, steps=2, encoding=np.zeros((1, 4)))
-    with pytest.raises(ValueError, match="start_step .* must be < steps"):
-        tpipe(batch_size=1, start_step=500, steps=3)
-    with pytest.raises(ValueError, match="raw_audio batch"):
-        tpipe(raw_audio=_clips(0, 3), noise=torch.from_numpy(_noise(0)), steps=2)
-    with pytest.raises(ValueError, match="per-row step_generator"):
-        tpipe(batch_size=2, steps=2, eta=1.0, step_generator=[torch.Generator()])
-    with pytest.raises(FileNotFoundError, match="Hub model id"):
-        TorchPipeline.from_pretrained("teticio/audio-diffusion-256", device="cpu")
-    tpipe.save_pretrained(str(tmp_path))
-    unet_dir = tmp_path / "unet"
-    os.replace(unet_dir / "diffusion_pytorch_model.bin", unet_dir / "diffusion_pytorch_model.safetensors")
-    with pytest.raises(ValueError, match="safetensors"):
-        TorchPipeline.from_pretrained(str(tmp_path), device="cpu")
-
-
 def test_ddim_step_and_postprocess_match_jax():
     rng = np.random.default_rng(14)
     x, eps = (rng.standard_normal((2, 8, 8, 1)).astype(np.float32) * 2 for _ in range(2))
@@ -299,97 +215,6 @@ def test_ddim_step_and_postprocess_match_jax():
                                       np.asarray(jax_postprocess(jnp.asarray(img[..., :c]))))
 
 
-# ---------------------------------------------------- sharded inference (tests/test_pipeline.py:241-261, 310-336)
-
-@pytest.fixture
-def one_thread():
-    """torch's CPU kernels give a row the same bits in any batch only on one
-    thread (GroupNorm splits a group's reduction across threads when batch x
-    groups is small) and with at least 2 rows (a lone row takes GEMV and
-    another convolution kernel): the sharded tests run so, 2 rows per replica."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
-def _sharded(tpipe, n=2):
-    """``tpipe``'s modules split over ``n`` shares of the CPU (``make_mesh`` allows a repeated device)."""
-    from audio_diffusion_torch.parallel import make_mesh
-
-    return TorchPipeline(tpipe.unet, TorchMel(**MEL_KW, device="cpu"), tpipe.scheduler, tpipe.vqvae,
-                         device="cpu").shard(make_mesh(devices=["cpu"] * n))
-
-
-def _assert_equal(a, b):
-    for x, y in zip(a, b):
-        assert torch.equal(x, y)
-
-
-def test_sharded_generation_matches_unsharded_and_jax(pipes, one_thread):
-    """The sharded call is bitwise the unsharded one, with injected draws and
-    with the draws of a generator (made on the primary device in the
-    unsharded order), and within the port's tolerance of the JAX package's."""
-    jpipe, tpipe = pipes
-    sharded = _sharded(tpipe)
-    noise = _noise(12, (4, 16, 16, 1))
-    key = jax.random.key(13)
-    raw_j, _ = jpipe(batch_size=4, steps=3, key=key, noise=jnp.asarray(noise), return_arrays=True, pcm16=True)
-    phase, _, _ = _jax_draws(key, 4, (16, 16, 1), 0)
-    kw = dict(noise=torch.from_numpy(noise), steps=3, gl_phase=phase, return_arrays=True, pcm16=True)
-    got = sharded(**kw)
-    _assert_equal(got, tpipe(**kw))
-    _assert_uint8_close(got[0].numpy(), np.asarray(raw_j))
-    for extra in ({}, {"eta": 0.7}):  # noise, then step noise of the shared chain, then the phase
-        kw = dict(batch_size=4, steps=2, return_arrays=True, **extra)
-        _assert_equal(sharded(generator=torch.Generator().manual_seed(3), **kw),
-                      tpipe(generator=torch.Generator().manual_seed(3), **kw))
-    out = sharded(batch_size=4, steps=2)
-    assert len(out.audios) == 4 and out.raw_images.shape == (4, 32, 32)
-    np.testing.assert_array_equal(sharded(batch_size=4, steps=2, return_images_only=True), out.raw_images)
-    with pytest.raises(ValueError, match="multiple of the mesh's data-axis size"):
-        sharded(batch_size=3, steps=2)
-
-
-def test_sharded_audio_to_audio_matches_unsharded(pipes, one_thread):
-    """Batched rows split with their clips; one broadcast clip takes its
-    posterior draw from the generator on the primary device, as the
-    unsharded call does."""
-    _, tpipe = pipes
-    sharded = _sharded(tpipe)
-    batched = dict(raw_audio=_clips(14, 4), noise=torch.from_numpy(_noise(15, (4, 16, 16, 1))), start_step=1,
-                   steps=3, mask_start_secs=0.1, return_arrays=True)
-    single = dict(raw_audio=_clips(16, 1)[0], batch_size=4, start_step=1, steps=3, mask_end_secs=0.1,
-                  return_arrays=True)
-    for kw in (batched, single):
-        _assert_equal(sharded(generator=torch.Generator().manual_seed(4), **kw),
-                      tpipe(generator=torch.Generator().manual_seed(4), **kw))
-    with pytest.raises(ValueError, match="raw_audio batch"):
-        sharded(raw_audio=_clips(0, 2), noise=torch.from_numpy(_noise(0, (4, 16, 16, 1))), steps=2)
-
-
-def test_sharded_conditional_and_per_row_generators(one_thread):
-    """encoding= rows and per-row step generators split with their rows (DDPM: every step draws)."""
-    kw = dict(UNET_KW, sample_size=(32, 32), down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
-              up_block_types=("UpBlock2D", "CrossAttnUpBlock2D"), attention_head_dim=4, cross_attention_dim=12)
-    unet = TorchUNet(TorchUNetConfig(**kw)).init_params(torch.Generator().manual_seed(5))
-    tpipe = TorchPipeline(unet, TorchMel(**MEL_KW, device="cpu"),
-                          TorchDDPM(TorchSchedulerConfig(num_train_timesteps=100)), device="cpu")
-    sharded = _sharded(tpipe)
-    enc = np.random.default_rng(6).standard_normal((4, 1, 12)).astype(np.float32)
-    for gens in (None, lambda: [torch.Generator().manual_seed(s) for s in range(4)]):
-        call = dict(batch_size=4, steps=3, encoding=enc, return_arrays=True)
-        a = tpipe(generator=torch.Generator().manual_seed(7), step_generator=gens and gens(), **call)
-        b = sharded(generator=torch.Generator().manual_seed(7), step_generator=gens and gens(), **call)
-        _assert_equal(a, b)
-    with pytest.raises(ValueError, match="encoding batch axis"):
-        sharded(batch_size=2, steps=2, encoding=enc)
-    from audio_diffusion_torch.parallel import make_mesh
-
-    with pytest.raises(ValueError, match="along 'data' only"):
-        tpipe.shard(make_mesh(num_data=1, num_model=2, devices=["cpu", "cpu"]))
-
-
 def test_port_imports_no_jax():
     code = ("import sys, audio_diffusion_torch, audio_diffusion_torch.pipelines.pipeline, "
             "audio_diffusion_torch.utils.convert, audio_diffusion_torch.utils.diffusers_io, "
@@ -401,6 +226,7 @@ def test_port_imports_no_jax():
             "audio_diffusion_torch.models.ema, audio_diffusion_torch.audio_diffusion, audio_diffusion_torch.apps, "
             "audio_diffusion_torch.pipelines.stitch, audio_diffusion_torch.ops.beat, audio_diffusion_torch.utils.hub, "
             "audio_diffusion_torch.utils.ldm_import, audio_diffusion_torch.utils.profiling, "
+            "audio_diffusion_torch.utils.batch_invariant, "
             "audio_diffusion_torch.data.native_audio, audio_diffusion_torch.data.prepare, "
             "audio_diffusion_torch.scripts.audio_to_images, audio_diffusion_torch.scripts.encode_audio, "
             "audio_diffusion_torch.scripts.convert_checkpoint, audio_diffusion_torch.parallel, "

@@ -28,7 +28,7 @@ import pytest
 import torch
 
 from audio_diffusion_torch.mel import Mel
-from audio_diffusion_torch.models import UNet2D, UNetConfig
+from audio_diffusion_torch.models import AutoencoderKL, UNet2D, UNetConfig, VAEConfig
 from audio_diffusion_torch.pipelines import AudioDiffusionPipeline
 from audio_diffusion_torch.schedulers import DDIMScheduler, SchedulerConfig
 from audio_diffusion_torch.serving import AudioDiffusionServer, DynamicBatcher, QueueFull, make_server
@@ -51,6 +51,25 @@ def _pipe():
 @pytest.fixture(scope="module")
 def pipe():
     return _pipe()
+
+
+def _attention_pipe(dtype):
+    """A tiny latent pipeline with the attention on the serving path: an
+    AttnDownBlock2D/AttnUpBlock2D pair in the UNet and the VAE's mid attention."""
+    vae = AutoencoderKL(VAEConfig(block_out_channels=(8, 16), layers_per_block=1, norm_num_groups=4, sample_size=RES,
+                                  dtype=dtype)).init_params(torch.Generator().manual_seed(2))
+    cfg = UNetConfig(sample_size=vae.config.latent_hw(RES, RES), block_out_channels=(16, 32),
+                     down_block_types=("DownBlock2D", "AttnDownBlock2D"),
+                     up_block_types=("AttnUpBlock2D", "UpBlock2D"), layers_per_block=1, norm_num_groups=8, dtype=dtype,
+                     fused_groupnorm=True)
+    return AudioDiffusionPipeline(UNet2D(cfg).init_params(torch.Generator().manual_seed(3)),
+                                  Mel(x_res=RES, y_res=RES, hop_length=HOP, n_iter=8, device="cpu"),
+                                  DDIMScheduler(SchedulerConfig(num_train_timesteps=100)), vae, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def attention_pipes():
+    return {"attention-f32": _attention_pipe("float32"), "attention-bf16": _attention_pipe("bfloat16")}
 
 
 CROSS = 8  # the tiny conditional model's cross_attention_dim
@@ -135,7 +154,8 @@ class RecordingPipe(CountingPipe):
 
 
 def _solo(pipe, seed, steps, eta=0.0, raw_audio=None, start_step=0, encoding=None):
-    raw, _ = pipe(noise=_noise_for_seed(seed, RES, RES, 1)[None], steps=steps, eta=eta,
+    noise = _noise_for_seed(seed, *pipe.sample_hw, pipe.unet.config.in_channels)[None]
+    raw, _ = pipe(noise=noise, steps=steps, eta=eta,
                   step_generator=[torch.Generator().manual_seed(seed)], raw_audio=raw_audio,
                   start_step=start_step, encoding=None if encoding is None else encoding[None],
                   return_arrays=True)
@@ -149,11 +169,16 @@ def test_noise_for_seed_is_bitwise_the_jax_packages():
         np.testing.assert_array_equal(_noise_for_seed(seed, RES, RES, 1), jax_noise_for_seed(seed, RES, RES, 1))
 
 
-@pytest.mark.parametrize("eta", [0.0, 1.0])
-def test_solo_equals_batched_bitwise(pipe, eta):
+@pytest.mark.parametrize("model, eta", [pytest.param("plain", eta, id=str(eta)) for eta in (0.0, 1.0)]
+                         + [pytest.param(m, eta, id=f"{m}-{eta}") for m in ("attention-f32", "attention-bf16")
+                            for eta in (0.0, 1.0)])
+def test_solo_equals_batched_bitwise(pipe, attention_pipes, model, eta):
     """Same seed -> bitwise the same spectrogram alone or padded into a tier
     with other requests; at eta > 0 because the step noise of each row comes
-    from its own generator, seeded with its request's seed."""
+    from its own generator, seeded with its request's seed. The plain UNet has
+    no attention; the attention models put SelfAttention2D and the VAE's mid
+    attention on the path, in f32 and in bf16."""
+    pipe = pipe if model == "plain" else attention_pipes[model]
     solo = _solo(pipe, 7, 3, eta)
     batcher = DynamicBatcher(pipe, max_batch=4, max_wait_ms=500, steps=3, eta=eta)
     try:

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 from test_beat_stitch import click_track
+from test_torch_pipeline import one_intra_op_thread  # noqa: F401 (autouse: one intra-op thread)
 from test_torch_pipeline import UNET_KW, VAE_KW, _assert_uint8_close, _clips, _noise, _pair
 
 from audio_diffusion_torch import apps

@@ -13,6 +13,7 @@ import torch
 from PIL import Image
 
 from test_torch_models import random_params
+from test_torch_pipeline import one_intra_op_thread  # noqa: F401 (autouse: one intra-op thread)
 
 from audio_diffusion_torch.models import AutoencoderKL as TorchVAE
 from audio_diffusion_torch.models import VAEConfig as TorchVAEConfig
