@@ -7,18 +7,37 @@ A request runs these stages, in this order:
     overwrite] -> [VAE decode of latents / LATENT_SCALE] -> uint8
     postprocess -> NNLS + Griffin-Lim -> [int16 PCM]
 
-``pipe.fuse`` (default True, as in the JAX package) runs them as one program
-per request signature, the counterpart of ``_fused_generate_fn``
-(pipeline.py:317-401): on a CUDA device it is captured once as a CUDA graph,
-cached in ``pipe._compiled`` under its signature and replayed on every later
-call with that signature; on the CPU the same program function runs without
-a capture. Every random draw is made outside the program, in the eager order
-(noise, the posterior eps of one broadcast clip, the step noises, the
-Griffin-Lim phase), and copied into the program's static inputs, so the two
-paths see the same numbers. ``fuse = False`` runs the stages eagerly: the
-reference for the graph, and the path for profilers and module hooks.
-``return_images_only=True`` is always eager, as in the JAX package
-(pipeline.py:452). A failed capture or replay raises; nothing falls back.
+Every call runs as cached programs, the counterparts of the JAX package's
+jitted functions, each in ``pipe._compiled`` under its key. On a CUDA device
+a program's first call warms it up and captures it as CUDA graphs into the
+pipeline's one graph memory pool; every later call with that key copies the
+request into the program's static inputs and replays the graphs. On the CPU
+the same program functions run on the static inputs without a capture. A
+failed capture or replay raises; nothing falls back.
+
+- ``pipe.fuse`` (default True, as in the JAX package) runs a request as one
+  program per request signature, the counterpart of ``_fused_generate_fn``
+  (pipeline.py:317-401).
+- ``fuse = False`` and ``return_images_only=True`` run the staged path
+  (pipeline.py:508-612): one program per stage, keyed like the JAX ones:
+  ``("prep", input_mode, t0, ...)`` (``_prep_fn``), ``("denoise", steps,
+  start_step, eta, mask_start, mask_end, input_mode, encoding shape, ...)``
+  (``_denoise_fn``; ``input_mode`` for its ``has_input``: a single clip's
+  input is one row broadcast over the batch, a static input of another
+  layout), ``("vae_decode", ...)`` or ``("postprocess", ...)``
+  (decode and postprocess), ``("audio", pcm16, ...)`` (NNLS + Griffin-Lim
+  and ``"pcm16"``). ``return_images_only`` stops after the decode.
+- :meth:`AudioDiffusionPipeline.encode` runs ``("vae_encode_mode", ...)``
+  and ``("encode", steps, ...)``, as the JAX package (pipeline.py:140-150,
+  615-652).
+
+Every random draw is made outside the programs, in the eager order (noise,
+the posterior eps of one broadcast clip, the step noises, the Griffin-Lim
+phase), and copied into the static inputs, so every path sees the same
+numbers and gives the same bits. :meth:`AudioDiffusionPipeline._uncaptured`
+runs calls op by op, outside any program (the role of ``jax.disable_jit()``):
+the reference the programs are tested against, and the path for profilers
+and module hooks, which see a replay but not its calls.
 
 There is no CPU fallback: the pipeline runs on the device it is given, and on
 a CUDA device every kernel wrapper launches its kernel or raises.
@@ -90,6 +109,20 @@ def pcm16_quantize(audio: torch.Tensor) -> torch.Tensor:
     return torch.clamp(audio / peak * 32767.0, -32768, 32767).to(torch.int16)
 
 
+def _canonical(t: torch.Tensor) -> torch.Tensor:
+    """``t`` with the strides of a new contiguous tensor of its shape, copied
+    if it has other ones: a size-1 dim's stride too, which cuDNN and oneDNN
+    read when they choose a layout (see :meth:`AudioDiffusionPipeline._stage`)."""
+    if t.stride() == torch.empty(t.shape, device="meta").stride():
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def _given(**tensors) -> dict:
+    """The keyword arguments that are not None: a program's inputs."""
+    return {k: v for k, v in tensors.items() if v is not None}
+
+
 @dataclasses.dataclass
 class PipelineOutput:
     images: List[Image.Image]
@@ -99,12 +132,16 @@ class PipelineOutput:
 
 
 @dataclasses.dataclass(eq=False)
-class FusedProgram:
-    """One request signature's program (the counterpart of a jitted
-    ``_fused_generate_fn``): its static inputs, the denoise steps split into
+class Program:
+    """One entry of ``pipe._compiled``, the counterpart of one jitted
+    function of the JAX package: the fused request
+    (:meth:`AudioDiffusionPipeline._segment`) or one stage of the staged path
+    and of ``encode`` (:meth:`AudioDiffusionPipeline._stage_body`, chosen by
+    ``key[0]``). It holds its static inputs, its denoise steps split into
     ``segments`` of at most :data:`STEP_NOISE_BYTES` of step noise (one
-    segment unless a DDPM-scale request needs more), and on a CUDA device one
-    captured graph per segment.
+    segment unless a DDPM-scale request needs more; a stage without steps has
+    one), what its function reads besides its inputs, and on a CUDA device
+    one captured graph per segment.
 
     ``launches[j]``: what one replay of graph j launches, per counter of
     :data:`LAUNCH_COUNTERS`, recorded at capture and credited to the
@@ -113,17 +150,17 @@ class FusedProgram:
     ``pool_bytes`` (the growth of the pipeline's graph memory pool while
     capturing) describe the capture."""
 
-    key: tuple  # the signature (AudioDiffusionPipeline.signature)
-    schedule: object
-    timesteps: np.ndarray  # the denoise steps, schedule.timesteps[start_step:]
-    segments: list  # [(i0, i1)] ranges of timesteps, one graph each
-    input_mode: str  # "none" | "batched" | "single"
-    t0: Optional[int]  # the re-noise timestep of audio-to-audio
-    eta: float
-    pcm16: bool
-    frozen: Optional[torch.Tensor]  # the columns the mask freezes, NHWC
+    key: tuple  # AudioDiffusionPipeline.signature for the fused request; (stage name, ...) + _fixed_key() for a stage
     inputs: dict  # name -> static input tensor
-    state: dict = dataclasses.field(default_factory=dict)  # carried between segments; "raw", "audio" at the end
+    segments: list = dataclasses.field(default_factory=lambda: [(0, 1)])  # [(i0, i1)] of timesteps, one graph each
+    schedule: object = None
+    timesteps: Optional[np.ndarray] = None  # the denoise steps, schedule.timesteps[start_step:]
+    input_mode: str = "none"  # "none" | "batched" | "single"
+    t0: Optional[int] = None  # the re-noise timestep of audio-to-audio
+    eta: float = 0.0
+    pcm16: bool = False
+    frozen: Optional[torch.Tensor] = None  # the columns the mask freezes, NHWC
+    state: dict = dataclasses.field(default_factory=dict)  # carried between segments, and the outputs
     graphs: Optional[list] = None
     launches: Optional[list] = None
     warmup_seconds: float = 0.0
@@ -150,13 +187,14 @@ class AudioDiffusionPipeline:
         self.mesh = None
         self._replica_devices = None  # the mesh's data-axis devices once sharded
         self._twins = {}  # device -> the replica on it, for every device but this pipeline's
-        # Run eligible calls as one program per request signature (module docstring).
+        # Run a request as one program per request signature, else as one per stage (module docstring).
         self.fuse = True
-        self._compiled = {}  # signature -> FusedProgram
-        self._lock = threading.Lock()  # one fused request at a time: the programs share one memory pool
+        self._eager = False  # op by op, outside any program: set by _uncaptured
+        self._compiled = {}  # key -> Program
+        self._lock = threading.Lock()  # one request at a time: the programs share one memory pool
         self._pool = None  # the graph memory pool every capture of this pipeline shares
         self._capture_stream = None
-        self._done = None  # an event after the last fused request's outputs were cloned
+        self._done = None  # an event after the last request's outputs were cloned
 
     def shard(self, mesh) -> "AudioDiffusionPipeline":
         """Split inference over ``mesh``'s ``data`` axis (``parallel.make_mesh``):
@@ -191,6 +229,22 @@ class AudioDiffusionPipeline:
         return AudioDiffusionPipeline(copy(self.unet), Mel.from_config(self.mel.config.config_dict(), device=device),
                                       self.scheduler, copy(self.vqvae) if self.vqvae is not None else None,
                                       device=device)
+
+    @contextlib.contextmanager
+    def _uncaptured(self):
+        """Run the calls made inside op by op, outside any program, as
+        ``jax.disable_jit()`` runs the JAX package's: the reference the
+        programs are held against, and the path for profilers and module
+        hooks, which see a graph's replay but not its calls. It covers the
+        replicas of a sharded pipeline."""
+        pipes = [self, *self._twins.values()]
+        for p in pipes:
+            p._eager = True
+        try:
+            yield self
+        finally:
+            for p in pipes:
+                p._eager = False
 
     def get_default_steps(self) -> int:
         """50 for DDIM, num_train_timesteps for DDPM."""
@@ -378,34 +432,72 @@ class AudioDiffusionPipeline:
         stochastic = not isinstance(self.scheduler, DDIMScheduler) or eta > 0
         step_source = step_generator if step_generator is not None else generator
 
-        if (self.fuse if fuse is None else fuse) and not return_images_only:
-            input_mode = "none" if not has_input else "batched" if batched else "single"
-            if input_mode == "single" and self.is_latent and posterior_eps is None:
-                # the draw DiagonalGaussian.sample makes: f32, like the posterior's mean
-                lh, lw = self.vqvae.config.latent_hw(self.mel.y_res, self.mel.x_res)
-                posterior_eps = torch.randn((1, lh, lw, self.vqvae.config.latent_channels), generator=generator,
-                                            device=generator.device)
-            key = self.signature(steps, eta, rows, enc, pcm16, start_step, mask_start, mask_end, input_mode)
-            noises = (step_noises(tuple(noise.shape), len(timesteps), self.device, step_source, step_noise)
+        if self._eager:  # op by op, outside any program (_uncaptured)
+            images = input_images = noise
+            if has_input:
+                images, input_images = self._prep_inputs(slices, noise, batched, t0, generator, posterior_eps)
+            noises = (step_noises(tuple(images.shape), len(timesteps), self.device, step_source, step_noise)
                       if stochastic else None)
-            with self._lock:
-                prog = self._compiled.get(key) or self._new_program(
-                    key, schedule, timesteps, input_mode, t0, eta, pcm16, mask_start, mask_end, stochastic,
-                    noise, slices, enc)
-                raw, audio = self._run_program(prog, noise, slices, enc, posterior_eps, noises, gl_phase, generator)
-            return self._output(raw, audio, return_dict, return_arrays)
+            x = self._denoise(images, input_images, noise, enc, schedule, timesteps, eta,
+                              self._frozen(mask_start, mask_end), noises)
+            raw = self._decode(x)
+            if return_images_only:
+                return raw.cpu().numpy()
+            return self._output(raw, self._audio(raw, generator, gl_phase, pcm16), return_dict, return_arrays)
 
-        images = input_images = noise
-        if has_input:
-            images, input_images = self._prep_inputs(slices, noise, batched, t0, generator, posterior_eps)
-        noises = (step_noises(tuple(images.shape), len(timesteps), self.device, step_source, step_noise)
+        # the programs take the request's tensors in one layout, whatever the caller's
+        noise, enc, posterior_eps = (None if t is None else _canonical(t) for t in (noise, enc, posterior_eps))
+        input_mode = "none" if not has_input else "batched" if batched else "single"
+        if input_mode == "single" and self.is_latent and posterior_eps is None:
+            # the draw DiagonalGaussian.sample makes: f32, like the posterior's mean
+            lh, lw = self.vqvae.config.latent_hw(self.mel.y_res, self.mel.x_res)
+            posterior_eps = torch.randn((1, lh, lw, self.vqvae.config.latent_channels), generator=generator,
+                                        device=generator.device)
+        noises = (step_noises(tuple(noise.shape), len(timesteps), self.device, step_source, step_noise)
                   if stochastic else None)
-        x = self._denoise(images, input_images, noise, enc, schedule, timesteps, eta,
-                          self._frozen(mask_start, mask_end), noises)
-        raw = self._decode(x)
+        n = len(timesteps)  # >= 1: start_step < steps
+        span = min(n, max(1, STEP_NOISE_BYTES // (noise.numel() * 4))) if stochastic else n
+        denoise = dict(schedule=schedule, timesteps=timesteps, eta=float(eta),
+                       frozen=self._frozen(mask_start, mask_end),
+                       segments=[(i, min(i + span, n)) for i in range(0, n, span)])
+        step_draws = {"step_noise": (span, *noise.shape)} if stochastic else {}
+        phase = {"gl_phase": (rows, self.mel.x_res, self.mel.n_fft // 2 + 1)}
+        prep = _given(slices=None if slices is None else _canonical(torch.from_numpy(slices)), noise=noise,
+                      posterior_eps=posterior_eps)
+        with self._lock:
+            self._wait_for_clones()
+            if (self.fuse if fuse is None else fuse) and not return_images_only:
+                key = self.signature(steps, eta, rows, enc, pcm16, start_step, mask_start, mask_end, input_mode)
+                prog = self._stage(key, {**prep, **_given(enc=enc)}, {**step_draws, **phase}, input_mode=input_mode,
+                                   t0=t0, pcm16=pcm16, **denoise)
+                self._execute(prog, self._segment, noises, gl_phase, generator)
+                raw, audio = self._clones(prog.state["raw"], prog.state["audio"])
+            else:  # the staged path: [prep,] denoise, decode [, audio], one program each
+                fixed = self._fixed_key()
+                x, input_images = noise, None
+                if has_input:
+                    stage = self._stage(("prep", input_mode, t0, rows) + fixed, prep, input_mode=input_mode, t0=t0)
+                    self._execute(stage, self._stage_body)
+                    x, input_images = stage.state["images"], stage.state["input_images"]
+                stage = self._stage(("denoise", steps, start_step, float(eta), mask_start, mask_end, input_mode,
+                                     None if enc is None else tuple(enc.shape[1:]), rows) + fixed,
+                                    _given(x=x, noise=noise, input_images=input_images, enc=enc), step_draws,
+                                    **denoise)
+                self._execute(stage, self._stage_body, noises)
+                stage = self._stage(("vae_decode" if self.is_latent else "postprocess", rows) + fixed,
+                                    {"x": stage.state["x"]})
+                self._execute(stage, self._stage_body)
+                if return_images_only:
+                    (raw,) = self._clones(stage.state["raw"])
+                else:
+                    stage = self._stage(("audio", pcm16, rows) + fixed, {"raw": stage.state["raw"]}, phase,
+                                        pcm16=pcm16)
+                    self._execute(stage, self._stage_body, None, gl_phase, generator)
+                    # the spectrograms from the audio stage's static input, which no graph writes
+                    raw, audio = self._clones(stage.inputs["raw"], stage.state["audio"])
         if return_images_only:
             return raw.cpu().numpy()
-        return self._output(raw, self._audio(raw, generator, gl_phase, pcm16), return_dict, return_arrays)
+        return self._output(raw, audio, return_dict, return_arrays)
 
     # ------------------------------------------------------------------ stages
     def _frozen(self, mask_start: int, mask_end: int) -> Optional[torch.Tensor]:
@@ -443,54 +535,72 @@ class AudioDiffusionPipeline:
         audio = self.mel.images_to_audio(raw, generator=generator, phase=phase)
         return pcm16_quantize(audio) if pcm16 else audio
 
-    # ----------------------------------------------------------- fused program
+    def _invert(self, x: torch.Tensor, schedule) -> torch.Tensor:
+        """The DDIM inversion loop: ``schedule``'s timesteps in reverse, each
+        a UNet call and an ``invert_step``."""
+        for t in schedule.timesteps[::-1]:
+            t = int(t)
+            model_output = self.unet(x, torch.full((), t, dtype=torch.int64, device=self.device))
+            x = self.scheduler.invert_step(model_output, t, x, schedule)
+        return x
+
+    # ---------------------------------------------------------------- programs
+    def _fixed_key(self) -> tuple:
+        """What a captured graph fixes besides its program's own arguments,
+        the end of every key in ``self._compiled``: the scheduler (its type
+        and config), the UNet's and VAE's compute dtypes, and the backend
+        flags that choose kernels (cuDNN on or off, as the batcher switches
+        it, and TF32), and last the UNet, VAE and Mel objects themselves
+        (compared by identity): a graph reads their tensors where they lay at
+        capture, so a module put in another's place needs a program of its
+        own."""
+        return (self.scheduler, self.unet.config.dtype, self.vqvae.config.dtype if self.vqvae is not None else None,
+                torch.backends.cudnn.enabled, torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+                self.unet, self.vqvae, self.mel)
+
     def signature(self, steps, eta, rows, enc, pcm16, start_step, mask_start, mask_end, input_mode) -> tuple:
-        """The key of a request's program in ``self._compiled``: the JAX
+        """The key of a request's fused program in ``self._compiled``: the JAX
         package's (pipeline.py:343-345) with the encoding's (seq, dim) for its
-        has-encoding flag, plus what else a captured graph fixes: the
-        scheduler (its type and config), the UNet's and VAE's compute dtypes,
-        and the backend flags that choose kernels (cuDNN on or off, as the
-        batcher switches it, and TF32), and last the UNet, VAE and Mel
-        objects themselves (compared by identity): a graph reads their
-        tensors where they lay at capture, so a module put in another's place
-        needs a program of its own. JAX's "noise generated" and "step key
-        derived" flags are left out: every draw is made outside the program
-        here, so they select the same program."""
+        has-encoding flag, then :meth:`_fixed_key`. JAX's "noise generated"
+        and "step key derived" flags are left out: every draw is made outside
+        the program here, so they select the same program."""
         return ("fused", steps, float(eta), rows, None if enc is None else tuple(enc.shape[1:]), pcm16, start_step,
-                mask_start, mask_end, input_mode, self.scheduler, self.unet.config.dtype,
-                self.vqvae.config.dtype if self.vqvae is not None else None, torch.backends.cudnn.enabled,
-                torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32, self.unet, self.vqvae,
-                self.mel)
+                mask_start, mask_end, input_mode) + self._fixed_key()
 
-    def _new_program(self, key, schedule, timesteps, input_mode, t0, eta, pcm16, mask_start, mask_end, stochastic,
-                     noise, slices, enc) -> FusedProgram:
-        """A program's static inputs, shaped like this request's; on a CUDA
-        device its graphs are captured by the first :meth:`_run_program`."""
-        def buf(shape):
-            return torch.zeros(shape, dtype=torch.float32, device=self.device)
+    def _stage(self, key: tuple, inputs: dict, draws: Optional[dict] = None, **config) -> Program:
+        """The program cached under ``key`` with ``inputs`` copied into its
+        static inputs; on its first call a new one, with a static input of
+        each tensor of ``inputs``' shape and strides, an f32 one of each
+        shape of ``draws`` (filled by :meth:`_execute` as its segments run),
+        and ``config`` (Program's fields its function reads).
 
-        n = len(timesteps)  # >= 1: start_step < steps
-        span = min(n, max(1, STEP_NOISE_BYTES // (noise.numel() * 4))) if stochastic else n
-        inputs = {"noise": buf(noise.shape),
-                  "gl_phase": buf((noise.shape[0], self.mel.x_res, self.mel.n_fft // 2 + 1))}
-        if stochastic:
-            inputs["step_noise"] = buf((span, *noise.shape))
-        if input_mode != "none":
-            inputs["slices"] = buf(slices.shape)
-        if input_mode == "single" and self.is_latent:
-            lh, lw = self.vqvae.config.latent_hw(self.mel.y_res, self.mel.x_res)
-            inputs["posterior_eps"] = buf((1, lh, lw, self.vqvae.config.latent_channels))
-        if enc is not None:
-            inputs["enc"] = buf(enc.shape)
-        prog = FusedProgram(key, schedule, timesteps, [(i, min(i + span, n)) for i in range(0, n, span)],
-                            input_mode, t0, float(eta), pcm16, self._frozen(mask_start, mask_end), inputs)
-        if self.device.type != "cuda":  # on a CUDA device, cached once its capture succeeds
-            self._compiled[key] = prog
+        The strides are the eager tensor's because a graph's kernels can
+        depend on them: a (B, H, W, 1) sample whose channel stride is not 1
+        (the VAE posterior's mean, a view into NCHW memory) reaches cuDNN as
+        an NCHW tensor, a contiguous one as channels-last, and cuDNN rounds
+        the two otherwise. A key fixes the layouts of the stage outputs that
+        feed its program, and a request's own tensors arrive canonical
+        (:func:`_canonical`), so a call whose input has other strides than
+        its program's raises: a program never replays on a layout it was not
+        captured for."""
+        prog = self._compiled.get(key)
+        if prog is None:
+            bufs = {k: torch.empty_strided(v.shape, v.stride(), dtype=v.dtype, device=self.device)
+                    for k, v in inputs.items()}
+            bufs.update((k, torch.zeros(v, dtype=torch.float32, device=self.device)) for k, v in (draws or {}).items())
+            prog = Program(key, bufs, **config)
+        for k, v in inputs.items():
+            buf = prog.inputs[k]
+            if buf.shape != v.shape or buf.stride() != v.stride():
+                raise RuntimeError(f"program {key[0]!r}: input {k!r} of shape {tuple(v.shape)} and strides "
+                                   f"{v.stride()}, but it was made for {tuple(buf.shape)} and {buf.stride()}")
+            one = tuple(0 if st == 0 else slice(None) for st in buf.stride())  # a broadcast dim holds one slice
+            buf[one].copy_(v[one])
         return prog
 
-    def _segment(self, prog: FusedProgram, j: int) -> None:
-        """Segment ``j`` of the program, on its static inputs: [the input
-        prep,] its denoise steps [, then decode, postprocess and audio]."""
+    def _segment(self, prog: Program, j: int) -> None:
+        """Segment ``j`` of the fused program, on its static inputs: [the
+        input prep,] its denoise steps [, then decode, postprocess and audio]."""
         inp, state = prog.inputs, prog.state
         i0, i1 = prog.segments[j]
         if j == 0:
@@ -510,17 +620,42 @@ class AudioDiffusionPipeline:
             state["raw"] = self._decode(x)
             state["audio"] = self._audio(state["raw"], None, inp["gl_phase"], prog.pcm16)
 
-    def _capture(self, prog: FusedProgram) -> None:
+    def _stage_body(self, prog: Program, j: int) -> None:
+        """Segment ``j`` of one stage's program (``prog.key[0]``), on its
+        static inputs: the counterpart of one jitted stage of the JAX
+        package's staged path and of its ``encode``."""
+        inp, state, stage = prog.inputs, prog.state, prog.key[0]
+        if stage == "prep":
+            state["images"], state["input_images"] = self._prep_inputs(
+                inp["slices"], inp["noise"], prog.input_mode == "batched", prog.t0, None, inp.get("posterior_eps"))
+        elif stage == "denoise":
+            i0, i1 = prog.segments[j]
+            noises = iter(inp["step_noise"][: i1 - i0]) if "step_noise" in inp else None
+            state["x"] = self._denoise(inp["x"] if j == 0 else state["x"], inp.get("input_images"), inp["noise"],
+                                       inp.get("enc"), prog.schedule, prog.timesteps[i0:i1], prog.eta, prog.frozen,
+                                       noises)
+        elif stage in ("vae_decode", "postprocess"):
+            state["raw"] = self._decode(inp["x"])
+        elif stage == "audio":
+            state["audio"] = self._audio(inp["raw"], None, inp["gl_phase"], prog.pcm16)
+        elif stage == "vae_encode_mode":
+            state["x"] = LATENT_SCALE * self.vqvae.encode(inp["x"]).mode()
+        else:  # "encode"
+            state["x"] = self._invert(inp["x"], prog.schedule)
+
+    def _capture(self, prog: Program, body) -> None:
         """Warm the program up eagerly on a side stream (cuDNN and cuBLAS
         heuristics, cuFFT plans, the kernels' build, the cached device
-        constants), then capture each segment as a CUDA graph into the
-        pipeline's one memory pool. Replays are serialised (``self._lock``,
-        ``self._done``) and their outputs cloned before the next one, so
-        programs may share the pool. ``capture_error_mode="thread_local"``:
-        the batcher's finisher and copy stream work on other threads while a
-        pipeline captures. A capture records kernels and launches none, so
-        the counters' calls made while capturing are taken back and become
-        the per-replay credit."""
+        constants), then capture each segment (``body(prog, j)``) as a CUDA
+        graph into the pipeline's one memory pool. Replays are serialised
+        (``self._lock``, ``self._done``), a stage's outputs are copied into
+        the next stage's static inputs before another program replays, and a
+        request's outputs are cloned before the next one, so programs may
+        share the pool. ``capture_error_mode="thread_local"``: the batcher's
+        finisher and copy stream work on other threads while a pipeline
+        captures. A capture records kernels and launches none, so the
+        counters' calls made while capturing are taken back and become the
+        per-replay credit."""
         if self._capture_stream is None:
             self._capture_stream = torch.cuda.Stream(self.device)
             self._pool = torch.cuda.graph_pool_handle()
@@ -529,7 +664,7 @@ class AudioDiffusionPipeline:
         stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(stream):
             for j in range(len(prog.segments)):
-                self._segment(prog, j)
+                body(prog, j)
         torch.cuda.current_stream(self.device).wait_stream(stream)
         torch.cuda.synchronize(self.device)
         prog.warmup_seconds = time.perf_counter() - t0
@@ -543,7 +678,7 @@ class AudioDiffusionPipeline:
                 before = [c.launches for c in LAUNCH_COUNTERS]
                 try:
                     with torch.cuda.graph(graph, pool=self._pool, stream=stream, capture_error_mode="thread_local"):
-                        self._segment(prog, j)
+                        body(prog, j)
                 finally:
                     delta = tuple(c.launches - b for c, b in zip(LAUNCH_COUNTERS, before))
                     for c, d in zip(LAUNCH_COUNTERS, delta):
@@ -556,45 +691,49 @@ class AudioDiffusionPipeline:
         prog.capture_seconds = time.perf_counter() - t0
         prog.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
         prog.graphs, prog.launches = graphs, launches
-        self._compiled[prog.key] = prog
 
-    def _run_program(self, prog: FusedProgram, noise, slices, enc, posterior_eps, noises, gl_phase, generator):
-        """Copy the request into the program's static inputs, [capture,] then
-        run or replay each segment, filling each one's step noise just before
-        it and the Griffin-Lim phase before the last: the draws keep the
-        eager order. Returns clones of the outputs, out of the graph pool."""
-        if self._done is not None:
-            torch.cuda.current_stream(self.device).wait_event(self._done)  # the last replay's clones are done
-        inp = prog.inputs
-        inp["noise"].copy_(noise)
-        if slices is not None:
-            inp["slices"].copy_(torch.from_numpy(slices))
-        if enc is not None:
-            inp["enc"].copy_(enc)
-        if "posterior_eps" in inp:
-            inp["posterior_eps"].copy_(posterior_eps)
+    def _execute(self, prog: Program, body, noises=None, gl_phase=None, generator=None) -> None:
+        """Run ``prog`` on its static inputs and cache it: on a CUDA device
+        its first call captures it (:meth:`_capture`) and every call replays
+        its graphs, crediting their launches; on the CPU ``body(prog, j)``
+        runs each segment j. Just before each segment its draws are written
+        into the static inputs, which keeps the eager order: its steps' noises
+        from ``noises``, then before the last the Griffin-Lim phase
+        (``gl_phase``, or the draw Griffin-Lim makes from ``generator``)."""
         if self.device.type == "cuda" and prog.graphs is None:
-            self._capture(prog)
+            self._capture(prog, body)
         last = len(prog.segments) - 1
         for j, (i0, i1) in enumerate(prog.segments):
             for k in range(i1 - i0 if noises is not None else 0):
-                inp["step_noise"][k].copy_(next(noises))
-            if j == last:
-                if gl_phase is None:  # the draw Griffin-Lim makes
-                    gl_phase = 2.0 * math.pi * torch.rand(inp["gl_phase"].shape, generator=generator,
+                prog.inputs["step_noise"][k].copy_(next(noises))
+            if j == last and "gl_phase" in prog.inputs:
+                if gl_phase is None:
+                    gl_phase = 2.0 * math.pi * torch.rand(prog.inputs["gl_phase"].shape, generator=generator,
                                                           device=generator.device)
-                inp["gl_phase"].copy_(gl_phase)
+                prog.inputs["gl_phase"].copy_(gl_phase)
             if prog.graphs is None:
-                self._segment(prog, j)
+                body(prog, j)
             else:
                 prog.graphs[j].replay()
                 for c, d in zip(LAUNCH_COUNTERS, prog.launches[j]):
                     c.launches += d
-        raw, audio = prog.state["raw"].clone(), prog.state["audio"].clone()
+        self._compiled[prog.key] = prog
+
+    def _wait_for_clones(self) -> None:
+        """Before a request writes the static inputs: the last request's
+        clones of its outputs are done (:meth:`_clones`)."""
+        if self._done is not None:
+            torch.cuda.current_stream(self.device).wait_event(self._done)
+
+    def _clones(self, *outputs: torch.Tensor) -> tuple:
+        """Clones of a request's outputs, out of the programs' static
+        tensors; on a CUDA device an event after them, which the next
+        request waits on before it writes the static inputs."""
+        outputs = tuple(o.clone() for o in outputs)
         if self.device.type == "cuda":
             self._done = torch.cuda.Event()
             self._done.record(torch.cuda.current_stream(self.device))
-        return raw, audio
+        return outputs
 
     def _output(self, raw: torch.Tensor, audio: torch.Tensor, return_dict: bool, return_arrays: bool):
         if return_arrays:
@@ -679,20 +818,32 @@ class AudioDiffusionPipeline:
         pipeline first takes the VAE posterior mode, so the noise has the
         UNet's latent shape. Returns (B, H, W, C) on the pipeline's device.
         Unconditional, as in the JAX package (pipeline.py:645): a conditional
-        UNet raises for want of an encoding."""
+        UNet raises for want of an encoding.
+
+        Two programs, as the JAX package's: ``("vae_encode_mode", shape, ...)``
+        for a latent pipeline and ``("encode", steps, shape, ...)``, the
+        inversion loop (module docstring). The images' conversion to the f32
+        (B, H, W, 1) sample in [-1, 1] runs before them."""
         if not isinstance(self.scheduler, DDIMScheduler):
             raise ValueError("encode requires DDIM (deterministic)")
         schedule = self.scheduler.schedule(steps)
         arr = np.stack([np.frombuffer(im.tobytes(), dtype="uint8").reshape((im.height, im.width)) for im in images])
         x = (torch.as_tensor(arr, dtype=torch.float32, device=self.device) / 255.0) * 2.0 - 1.0
         x = x[..., None]  # NHWC
-        if self.is_latent:
-            x = LATENT_SCALE * self.vqvae.encode(x).mode()
-        for t in schedule.timesteps[::-1]:
-            t = int(t)
-            model_output = self.unet(x, torch.full((), t, dtype=torch.int64, device=self.device))
-            x = self.scheduler.invert_step(model_output, t, x, schedule)
-        return x
+        if self._eager:  # op by op, outside any program (_uncaptured)
+            if self.is_latent:
+                x = LATENT_SCALE * self.vqvae.encode(x).mode()
+            return self._invert(x, schedule)
+        fixed = self._fixed_key()
+        with self._lock:
+            self._wait_for_clones()
+            if self.is_latent:
+                stage = self._stage(("vae_encode_mode", tuple(x.shape)) + fixed, {"x": x})
+                self._execute(stage, self._stage_body)
+                x = stage.state["x"]
+            stage = self._stage(("encode", steps, tuple(x.shape)) + fixed, {"x": x}, schedule=schedule)
+            self._execute(stage, self._stage_body)
+            return self._clones(stage.state["x"])[0]
 
     @staticmethod
     def slerp(x0, x1, alpha: float) -> torch.Tensor:

@@ -29,14 +29,23 @@ Phases, one line each (plus detail lines):
              default fused path (each request signature one CUDA graph,
              captured by the first call and replayed after); the kernels'
              launch counters (credited per replay) must show the path went
-             through them. [layers] and [profile] read the eager path
-             (``pipe.fuse = False``). [fused]: batches 1, 8 and 32 eager and
-             from the graph: spectrograms bitwise, audio bitwise (or within 1
-             int16 LSB, the reason printed), 64 and 6 launches per denoise
-             step on both paths, walls, peak memory, each program's capture
-             time and graph-pool bytes, the credited launches of one replay
-             against the kernels torch.profiler counts in it, and the device
-             idle share of a graph request beside the eager one
+             through them. [layers] and [profile] read the eager path (op
+             by op, outside any program: ``pipe._uncaptured()``). [fused]:
+             batches 1, 8 and 32 eager and from the graph: spectrograms
+             bitwise, audio bitwise (or within 1 int16 LSB, the reason
+             printed), 64 and 6 launches per denoise step on both paths,
+             walls, peak memory, each program's capture time and graph-pool
+             bytes, the credited launches of one replay against the kernels
+             torch.profiler counts in it, and the device idle share of a
+             graph request beside the eager one. [staged]: the staged path
+             (``fuse = False``: one captured program per stage) at batches
+             1, 8 and 32 beside the fused replay and the eager run (bitwise
+             on the three, walls, each stage's warm-up and capture, the
+             pool's growth, credited launches against the profiler's),
+             ``return_images_only`` at batch 8, and ``encode`` (the DDIM
+             inversion's two programs) at 1, 8 and 32, replayed and eager
+             (bitwise, walls, launches per call, the round trip's uint8
+             MAE)
   5. fidelity  Griffin-Lim round trip and bf16-vs-f32 VAE round trip gates
   6. serve   the same pipeline saved with ``save_pretrained`` (diffusers
              layout), loaded through ``serving.make_server`` (bf16, fused
@@ -50,8 +59,8 @@ Phases, one line each (plus detail lines):
              cuDNN off); /healthz figures; warmup captures every program the
              traffic replays (no capture after it). Then the same pipeline
              reloaded through ``make_server(dtype="float32")``: seed 1000 at
-             tiers 32, 8 and 1 bitwise one spectrogram. [tier] (the eager
-             UNet and VAE, ``fuse = False``, in bf16 and in f32): every torch
+             tiers 32, 8 and 1 bitwise one spectrogram. [tier] (the UNet
+             and VAE called op by op, in bf16 and in f32): every torch
              call of a batch-8 and a batch-32 UNet forward and VAE decode
              re-run on row 0 alone (the attention blocks in one call, as
              before the f32 repair), and every module as the port runs it,
@@ -138,7 +147,9 @@ Phases, one line each (plus detail lines):
              steps/s, peak memory, the selectivity, 44 GroupNorm+SiLU
              launches per UNet forward of its evaluation and no attention
 Then one JSON line with each kernel's launches (``launches``: the [main]
-requests; ``serve_launches``: the [serve] traffic; ``apps_launches``: the
+requests; ``staged_launches``: the [staged] requests' staged replays;
+``encode_launches``: [staged]'s replayed ``encode`` calls;
+``serve_launches``: the [serve] traffic; ``apps_launches``: the
 [apps] calls; ``cond_launches``: the
 [cond] requests; ``train_launches``: the [train] run's forwards and
 backwards; ``dp_launches``: each [dp] rank's forwards and backwards;
@@ -163,7 +174,9 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 STEPS = 50
 REQUESTS = ((1, 101), (8, 102), (32, 103))  # (batch, generator seed)
-FUSED_PROFILES = 3  # [fused]: profiled replays allowed to see the credited launches (see phase_fused)
+FUSED_PROFILES = 3  # [fused], [staged]: profiled replays allowed to see the credited launches (profiled_launches)
+STAGED_REPS = 3  # [staged]: calls per path, batch and kind; the median wall is printed
+STAGED_IMAGES_BATCH = ROUND_TRIP_BATCH = 8  # [staged]: return_images_only, and encode's round trip
 GL_BOUND = 2.41 + 1.1  # bench.py:212-214, 256x256 hop 512
 VAE_BOUND = 2.0  # bench.py:231-232, uint8 MAE
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense): the bounds' denominators.
@@ -1012,7 +1025,7 @@ def phase_tier(pipe, card: str) -> dict:
     from audio_diffusion_torch.utils import batch_invariant
 
     saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark, torch.backends.cudnn.enabled)
-    pipe.fuse = False  # the probes call the eager UNet and hook every torch call
+    # the probes call the UNet and the VAE themselves, op by op, and hook every torch call
     models = {"bf16": (pipe.unet, pipe.vqvae), "f32": f32_models(pipe)}
     h, w = pipe.sample_hw
     x = torch.randn((32, h, w, 1), generator=torch.Generator(device="cuda").manual_seed(9), device="cuda")
@@ -1069,7 +1082,6 @@ def phase_tier(pipe, card: str) -> dict:
                     fail(f"[tier] inside the batcher's window a row's uint8 spectrogram depends on its batch: {moved}")
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark, torch.backends.cudnn.enabled = saved
-        pipe.fuse = True
     print(f"[tier] ok: inside the batcher's window row 0's uint8 spectrogram is the same alone and in batches "
           f"{TIER_PROBES}, in bf16 and in f32  [{card}]")
     return out
@@ -1269,12 +1281,11 @@ def phase_serve_f32(pipe, card: str) -> None:
 
 def phase_layers(pipe, card: str):
     """Per-layer device times at batch 32 (CUDA events), for the breakdown:
-    the eager stages, called one by one (``pipe.fuse = False``)."""
+    the stages' modules called one by one, op by op, outside any program."""
     import torch
 
     from audio_diffusion_torch.pipelines.pipeline import LATENT_SCALE, postprocess_images
 
-    pipe.fuse = False
     b = 32
     gen = torch.Generator(device="cuda").manual_seed(7)
     x = torch.randn((b, 32, 32, 1), generator=gen, device="cuda")
@@ -1288,8 +1299,7 @@ def phase_layers(pipe, card: str):
         raw = postprocess_images(img)
         gl = {p: cuda_time_ms(lambda: pipe.mel.images_to_audio(raw, generator=gen, projection=p), 2)
               for p in ("fft", "matmul")}
-    pipe.fuse = True
-    print(f"[layers] (eager stages, pipe.fuse = False) batch 32 device ms: unet_step {unet_ms:.4f} "
+    print(f"[layers] (the stages called op by op) batch 32 device ms: unet_step {unet_ms:.4f} "
           f"(x{STEPS} = {unet_ms * STEPS:.2f}), "
           f"vae_decode {vae_ms:.4f}, postprocess {post_ms:.4f}, nnls+gl fft {gl['fft']:.4f}, "
           f"nnls+gl matmul {gl['matmul']:.4f}  [{card}]")
@@ -1299,24 +1309,33 @@ def phase_layers(pipe, card: str):
 OUR_KERNELS = ("gn_silu_warp_kernel", "gn_silu_cta_kernel", "mha_small_kernel", "mha_mma_kernel", "mha_simt_kernel")
 
 
-def profile_request(pipe, fuse: bool, b: int = 32, seed: int = 104) -> dict:
-    """torch.profiler over one request of ``b`` at STEPS steps, eager or
-    fused: the wall, the device busy time, the events with device time, and
-    the count of each of this repo's kernels."""
+def request(pipe, path: str, **kw):
+    """One call of ``pipe`` on ``path``: "fused" (the default: the request's
+    program), "staged" (``fuse = False``: one program per stage) or "eager"
+    (op by op, outside any program: ``pipe._uncaptured()``, the path module
+    hooks and the profiler see call by call)."""
+    pipe.fuse = path != "staged"
+    try:
+        with pipe._uncaptured() if path == "eager" else contextlib.nullcontext():
+            return pipe(**kw)
+    finally:
+        pipe.fuse = True
+
+
+def profile_request(pipe, path: str, b: int = 32, seed: int = 104) -> dict:
+    """torch.profiler over one request of ``b`` at STEPS steps on ``path``
+    (:func:`request`): the wall, the device busy time, the events with device
+    time, and the count of each of this repo's kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    pipe.fuse = fuse
     gen = torch.Generator(device="cuda").manual_seed(seed)
     torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            pipe(batch_size=b, steps=STEPS, generator=gen, return_arrays=True)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-    finally:
-        pipe.fuse = True
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        request(pipe, path, batch_size=b, steps=STEPS, generator=gen, return_arrays=True)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
     events = [e for e in prof.key_averages() if dev_us(e) > 0]
     busy = sum(dev_us(e) for e in events)
     counts = {name: sum(e.count for e in events if name in e.key) for name in OUR_KERNELS}
@@ -1324,17 +1343,48 @@ def profile_request(pipe, fuse: bool, b: int = 32, seed: int = 104) -> dict:
             "counts": counts, "copies": [e for e in prof.key_averages() if e.key == "aten::copy_"]}
 
 
+def profiled_launches(pipe, path: str):
+    """One batch-32 replay on ``path`` ("fused" or "staged") under
+    torch.profiler: its credited launches against the kernels the profiler
+    counts. The profiler's kernel records come from CUPTI, which can drop a
+    few under a burst of graph kernels (seen once: 3,198 of 3,200). So up to
+    FUSED_PROFILES profiled replays: a count above the credit fails at once,
+    and one of them must see exactly the credit. Returns (credited, seen,
+    every attempt's count, the profile)."""
+    from audio_diffusion_torch.ops import attention as at
+    from audio_diffusion_torch.ops import fused_groupnorm as gn
+
+    counters = (gn.group_norm_silu, at.flash_mha)
+    want = [64 * STEPS, 6 * STEPS]
+    attempts = []
+    for _ in range(FUSED_PROFILES):
+        before = [c.launches for c in counters]
+        p = profile_request(pipe, path)
+        credited = [c.launches - x for c, x in zip(counters, before)]
+        seen = [sum(v for k, v in p["counts"].items() if k.startswith("gn_silu_")), p["counts"]["mha_small_kernel"]]
+        attempts.append(seen)
+        if credited != want or any(s > c for s, c in zip(seen, credited)):
+            fail(f"[{path}] one batch-32 replay: credited launches {credited}, torch.profiler counted {seen} "
+                 f"(gn_silu_*_kernel, mha_small_kernel), expected {want}")
+        if seen == credited:
+            return credited, seen, attempts, p
+    fail(f"[{path}] {FUSED_PROFILES} profiled batch-32 replays: torch.profiler counted {attempts}, never the "
+         f"credited {credited}")
+
+
 def dev_us(e) -> float:
     return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
 
 def phase_profile(pipe, card: str) -> dict:
-    """torch.profiler over one eager batch-32 request (``pipe.fuse = False``):
-    device busy share of the wall time and the kernels that take the most
-    device time. Returns the profile, for [fused] to set the graph's beside."""
-    p = profile_request(pipe, fuse=False)
+    """torch.profiler over one eager batch-32 request (op by op, outside any
+    program: ``pipe._uncaptured()``): device busy share of the wall time and
+    the kernels that take the most device time. Returns the profile, for
+    [fused] to set the graph's beside."""
+    p = profile_request(pipe, "eager")
     wall_us, busy, events = p["wall_us"], p["busy_us"], p["events"]
-    print(f"[profile] eager (pipe.fuse = False) batch 32, {STEPS} steps, profiled wall {wall_us / 1e3:.2f} ms, "
+    print(f"[profile] eager (op by op, pipe._uncaptured()) batch 32, {STEPS} steps, profiled wall "
+          f"{wall_us / 1e3:.2f} ms, "
           f"device busy {busy / 1e3:.2f} ms = {100 * busy / wall_us:.2f}% (idle {p['idle']:.2f}%)  [{card}]")
     for e in sorted(events, key=dev_us, reverse=True)[:12]:
         print(f"  {dev_us(e) / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
@@ -1351,8 +1401,9 @@ def phase_profile(pipe, card: str) -> dict:
 
 def phase_fused(pipe, card: str, eager_profile: dict) -> dict:
     """The fused path against the eager one on the [main] pipeline: for each
-    of REQUESTS, an eager request (``fuse = False``) and a graph replay of the
-    program [main]'s warm-up call captured, from one generator seed each:
+    of REQUESTS, an eager request (op by op, ``pipe._uncaptured()``) and a
+    graph replay of the program [main]'s warm-up call captured, from one
+    generator seed each:
     spectrograms bitwise, audio bitwise or within 1 int16 LSB (the reason
     printed), 64 and 6 launches per denoise step on both paths (the graph's
     credited per replay), no capture; walls, peak memory, the program's
@@ -1375,17 +1426,14 @@ def phase_fused(pipe, card: str, eager_profile: dict) -> dict:
         runs = {}
         n_programs = len(pipe._compiled)
         for fuse in (False, True):
-            pipe.fuse = fuse
             before = [c.launches for c in counters]
             gen = torch.Generator(device="cuda").manual_seed(seed)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            try:
-                raw, audio = pipe(batch_size=b, steps=STEPS, generator=gen, return_arrays=True)
-                torch.cuda.synchronize()
-            finally:
-                pipe.fuse = True
+            raw, audio = request(pipe, "fused" if fuse else "eager", batch_size=b, steps=STEPS, generator=gen,
+                                 return_arrays=True)
+            torch.cuda.synchronize()
             runs[fuse] = {"raw": raw, "audio": audio, "wall": time.perf_counter() - t0,
                           "peak": torch.cuda.max_memory_allocated() / 2**30,
                           "launches": [c.launches - x for c, x in zip(counters, before)]}
@@ -1419,30 +1467,173 @@ def phase_fused(pipe, card: str, eager_profile: dict) -> dict:
               f"{audio_note}; "
               f"launches group_norm_silu/flash_mha {graph['launches']} on both paths  [{card}]")
 
-    # The profiler's kernel records come from CUPTI, which can drop a few under a burst of graph kernels (seen
-    # once: 3,198 of 3,200). So up to FUSED_PROFILES profiled replays: a count above the credit fails at once,
-    # and one of them must see exactly the credit.
-    attempts = []
-    for _ in range(FUSED_PROFILES):
-        before = [c.launches for c in counters]
-        p = profile_request(pipe, fuse=True)
-        credited = [c.launches - x for c, x in zip(counters, before)]
-        seen = [sum(v for k, v in p["counts"].items() if k.startswith("gn_silu_")), p["counts"]["mha_small_kernel"]]
-        attempts.append(seen)
-        if credited != want or any(s > c for s, c in zip(seen, credited)):
-            fail(f"[fused] one batch-32 replay: credited launches {credited}, torch.profiler counted {seen} "
-                 f"(gn_silu_*_kernel, mha_small_kernel), expected {want}")
-        if seen == credited:
-            break
-    else:
-        fail(f"[fused] {FUSED_PROFILES} profiled batch-32 replays: torch.profiler counted {attempts}, never the "
-             f"credited {credited}")
+    credited, seen, attempts, p = profiled_launches(pipe, "fused")
     print(f"[fused] ok: one batch-32 replay credited {credited} launches = the profiler's gn_silu_*/mha_small_kernel "
           f"counts {seen} (profiled replays: {attempts}); under torch.profiler graph wall {p['wall_us'] / 1e3:.2f} ms, "
           f"device busy "
           f"{p['busy_us'] / 1e3:.2f} ms (idle {p['idle']:.2f}%) against eager {eager_profile['wall_us'] / 1e3:.2f} "
           f"ms, busy {eager_profile['busy_us'] / 1e3:.2f} ms (idle {eager_profile['idle']:.2f}%); programs "
           f"{len(pipe._compiled)}, pool bytes in all {sum(q.pool_bytes for q in pipe._compiled.values())}  [{card}]")
+    return out
+
+
+def phase_staged(pipe, card: str) -> dict:
+    """The staged path and the cached inversion on the [main] pipeline: the
+    counterparts of the JAX package's staged programs (``fuse = False``,
+    ``return_images_only``) and of its jitted ``encode``.
+
+    - Requests: for each of REQUESTS its first ``fuse = False`` call (one
+      eager warm-up and one capture per stage: denoise, vae_decode, audio;
+      each stage's seconds and the graph pool's growth), then STAGED_REPS
+      calls each of the staged replay, the fused replay ([main]'s program)
+      and the eager run, from one generator seed: spectrograms and audio
+      bitwise the same on the three, 64 and 6 launches per denoise step on
+      each (a replay's credited), the median walls. Then one batch-32 staged
+      replay under torch.profiler: its credited launches against the kernels
+      the profiler counts.
+    - Images only: ``return_images_only=True`` at STAGED_IMAGES_BATCH (the
+      denoise and decode stages replayed, nothing captured), its wall, its
+      spectrograms bitwise the fused call's.
+    - Inversion: ``encode`` of a request's images at each batch of REQUESTS,
+      its first call capturing ("vae_encode_mode" and "encode": seconds and
+      pool growth), then STAGED_REPS replays and STAGED_REPS eager runs:
+      bitwise, each call's launches (64 and 6 per UNet forward, STEPS
+      forwards), the median walls; at ROUND_TRIP_BATCH the round trip
+      ``pipe(noise=encode(images))`` at STEPS steps, its uint8 MAE against
+      the images: a figure, not a gate.
+
+    Returns each kernel's launches over the staged replays and over the
+    replayed ``encode`` calls, the counters set to 0 before each."""
+    import numpy as np
+    import torch
+
+    from audio_diffusion_torch.ops import attention as at
+    from audio_diffusion_torch.ops import fused_groupnorm as gn
+
+    counters = (gn.group_norm_silu, at.flash_mha)
+    want = [64 * STEPS, 6 * STEPS]
+    launches = {"staged": [0, 0], "encode": [0, 0]}
+
+    def timed(fn, what: str):
+        """fn()'s result and wall; fails unless it launched ``want``."""
+        before = [c.launches for c in counters]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        delta = [c.launches - x for c, x in zip(counters, before)]
+        if delta != want:
+            fail(f"[staged] {what}: launches (group_norm_silu, flash_mha) {delta}, expected {want}")
+        return result, wall
+
+    def first_call(fn, names, what: str):
+        """fn()'s first call, which must capture one program per name of ``names``."""
+        known = set(pipe._compiled)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        new = {k: p for k, p in pipe._compiled.items() if k not in known}
+        if [k[0] for k in new] != names or not all(p.graphs for p in new.values()):
+            fail(f"[staged] {what}: its first call captured {[k[0] for k in new]}, expected {names}")
+        stages = "; ".join(f"{k[0]} warm-up {p.warmup_seconds:.4f} s + capture {p.capture_seconds:.4f} s in "
+                           f"{len(p.graphs)} graph(s), pool +{p.pool_bytes / 2**30:.4f} GiB" for k, p in new.items())
+        return result, wall, sum(p.pool_bytes for p in new.values()), stages
+
+    def gen(seed):
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    out = {"requests": {}, "encode": {}}
+    fused_raw = {}
+    for b, seed in REQUESTS:
+        def call(path):
+            return request(pipe, path, batch_size=b, steps=STEPS, generator=gen(seed), return_arrays=True)
+
+        _, first_wall, pool, stages = first_call(lambda: call("staged"), ["denoise", "vae_decode", "audio"],
+                                                 f"batch {b}")
+        n_programs = len(pipe._compiled)
+        walls, results = {}, {}
+        for path in ("staged", "fused", "eager"):
+            times = []
+            for _ in range(STAGED_REPS):
+                if path == "staged":
+                    for c in counters:
+                        c.launches = 0
+                results[path], wall = timed(lambda: call(path), f"batch {b} {path}")
+                if path == "staged":
+                    launches["staged"] = [x + c.launches for x, c in zip(launches["staged"], counters)]
+                times.append(wall)
+            walls[path] = float(np.median(times))
+        if len(pipe._compiled) != n_programs:
+            fail(f"[staged] batch {b}: a replay captured another program")
+        for other in ("fused", "eager"):
+            for i, what in enumerate(("spectrograms", "audio")):
+                if not torch.equal(results["staged"][i], results[other][i]):
+                    d = (results["staged"][i].double() - results[other][i].double()).abs().max().item()
+                    fail(f"[staged] batch {b}: the staged {what} are not bitwise the {other} ones (max diff {d})")
+        fused_raw[b] = results["fused"][0]
+        out["requests"][b] = {"first_s": first_wall, "pool_bytes": pool, **{f"{k}_s": v for k, v in walls.items()}}
+        print(f"[staged] batch {b}: staged replay {walls['staged']:.4f} s, fused replay {walls['fused']:.4f} s, eager "
+              f"{walls['eager']:.4f} s (medians of {STAGED_REPS}); spectrograms and audio bitwise on the three, "
+              f"launches group_norm_silu/flash_mha {want} per call on each; first staged call {first_wall:.4f} s: "
+              f"{stages}  [{card}]")
+    credited, seen, attempts, p = profiled_launches(pipe, "staged")
+    print(f"[staged] one batch-32 staged replay credited {credited} launches = the profiler's "
+          f"gn_silu_*/mha_small_kernel counts {seen} (profiled replays: {attempts}); under torch.profiler wall "
+          f"{p['wall_us'] / 1e3:.2f} ms, device busy {p['busy_us'] / 1e3:.2f} ms (idle {p['idle']:.2f}%)  [{card}]")
+
+    b = STAGED_IMAGES_BATCH
+    n_programs = len(pipe._compiled)
+    images, wall = timed(lambda: pipe(batch_size=b, steps=STEPS, generator=gen(dict(REQUESTS)[b]),
+                                      return_images_only=True), f"return_images_only batch {b}")
+    if len(pipe._compiled) != n_programs:
+        fail(f"[staged] return_images_only batch {b} captured a program: the staged denoise and decode should replay")
+    if not (isinstance(images, np.ndarray) and np.array_equal(images, fused_raw[b].cpu().numpy())):
+        fail(f"[staged] return_images_only batch {b}: not bitwise the fused call's spectrograms")
+    out["images_only_s"] = wall
+    print(f"[staged] return_images_only batch {b}: {wall:.4f} s (the denoise and vae_decode stages replayed), "
+          f"spectrograms bitwise the fused call's  [{card}]")
+
+    for b, seed in REQUESTS:
+        pil = pipe(batch_size=b, steps=STEPS, generator=gen(seed)).images
+        first, first_wall, pool, stages = first_call(lambda: pipe.encode(pil, steps=STEPS),
+                                                     ["vae_encode_mode", "encode"], f"encode batch {b}")
+        walls, results = {}, {}
+        for path in ("replay", "eager"):
+            times = []
+            for _ in range(STAGED_REPS):
+                if path == "replay":
+                    for c in counters:
+                        c.launches = 0
+                with pipe._uncaptured() if path == "eager" else contextlib.nullcontext():
+                    results[path], wall = timed(lambda: pipe.encode(pil, steps=STEPS), f"encode batch {b} {path}")
+                if path == "replay":
+                    launches["encode"] = [x + c.launches for x, c in zip(launches["encode"], counters)]
+                times.append(wall)
+            walls[path] = float(np.median(times))
+        if not (torch.equal(first, results["replay"]) and torch.equal(first, results["eager"])):
+            d = (first - results["eager"]).abs().max().item()
+            fail(f"[staged] encode batch {b}: the replayed inversion is not bitwise the eager one (max diff {d})")
+        if not torch.isfinite(first).all():
+            fail(f"[staged] encode batch {b}: non-finite noise")
+        note = ""
+        if b == ROUND_TRIP_BATCH:
+            raw, _ = pipe(noise=first, steps=STEPS, return_arrays=True)
+            target = np.stack([np.asarray(im) for im in pil]).astype(np.int32)
+            mae = float(np.abs(raw.cpu().numpy().astype(np.int32) - target).mean())
+            out["round_trip_mae"] = mae
+            note = f"; round trip pipe(noise=encode(images)) at {STEPS} steps: uint8 MAE {mae:.4f} against the images"
+        out["encode"][b] = {"first_s": first_wall, "pool_bytes": pool, "replay_s": walls["replay"],
+                            "eager_s": walls["eager"]}
+        print(f"[staged] encode batch {b}: replay {walls['replay']:.4f} s, eager {walls['eager']:.4f} s (medians of "
+              f"{STAGED_REPS}), bitwise, launches group_norm_silu/flash_mha {want} per call; first call "
+              f"{first_wall:.4f} s: {stages}{note}  [{card}]")
+    print(f"[staged] ok: programs {len(pipe._compiled)}, graph pool bytes in all "
+          f"{sum(q.pool_bytes for q in pipe._compiled.values())}, reserved {torch.cuda.memory_reserved() / 2**30:.4f} "
+          f"GiB  [{card}]")
+    out["launches"] = {kind: {c.__name__: n for c, n in zip(counters, v)} for kind, v in launches.items()}
     return out
 
 
@@ -3000,7 +3191,9 @@ def phase_cond_train(card: str, root: Path) -> dict:
     launches = {name: c.launches for name, c in counters.items()}
     launches["FlashMHA.backward"] = at.FlashMHA.backwards
     vae, unet = result["vae"], result["unet"]
-    want = {"group_norm_silu": COND_NORMS * STEPS * COND_TRAIN_CLASSES, "flash_mha": 0, "FlashMHA.backward": 0}
+    # the evaluation's calls (return_images_only: the staged path) share one signature, and the first one's
+    # capture warms the denoise stage up eagerly: its steps run once more
+    want = {"group_norm_silu": COND_NORMS * STEPS * (COND_TRAIN_CLASSES + 1), "flash_mha": 0, "FlashMHA.backward": 0}
     if launches != want:
         fail(f"[cond-train] launches {launches}, expected {want}")
     if vae["steps"] != COND_TRAIN_VAE_STEPS or unet["steps"] != COND_TRAIN_UNET_STEPS:
@@ -3062,7 +3255,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive the port's paths on one GPU and check them.")
     ap.add_argument("--only", default=",".join(PHASE_GROUPS),
                     help="comma-separated phase groups for a partial run (kernels: gn, attn, attn-sweep, ref; main: "
-                         "main, layers, profile, fused, fidelity, serve, serve f32, tier; apps: apps, prepare, "
+                         "main, layers, profile, fused, staged, fidelity, serve, serve f32, tier; apps: apps, prepare, "
                          "golden; cond; train: "
                          "attn-grad, train, train-pixel, train-vae; dp: dp, shard, encoder-train; interop: native, "
                          "cond-train); a partial run prints no result lines")
@@ -3117,6 +3310,7 @@ def main(argv=None) -> int:
         launches = phase_main(pipe, card)
         phase_layers(pipe, card)
         phase_fused(pipe, card, phase_profile(pipe, card))
+        staged = phase_staged(pipe, card)
         phase_fidelity(pipe, card)
         serve_launches = phase_serve(pipe, card)
         phase_serve_f32(pipe, card)
@@ -3193,6 +3387,8 @@ def main(argv=None) -> int:
               "shard_launches": shard_launches["group_norm_silu"],
               "interop_launches": {"native": {k: v["group_norm_silu"] for k, v in native_launches.items()},
                                    "cond_train": cond_train_launches["group_norm_silu"]},
+              "staged_launches": staged["launches"]["staged"]["group_norm_silu"],
+              "encode_launches": staged["launches"]["encode"]["group_norm_silu"],
               "max_abs_err": gn_err["f32"], "bf16_max_ulps": gn_err["bf16_ulps"]}
     at_row = {"name": "flash_mha", "route": "cuda", "source": "audio_diffusion_torch/csrc/mha.cu",
               "replaces": "audio_diffusion_tpu/ops/pallas_attention.py:55", "launches": launches["flash_mha"],
@@ -3205,13 +3401,16 @@ def main(argv=None) -> int:
               "shard_launches": shard_launches["flash_mha"],
               "interop_launches": {"native": {k: v["flash_mha"] for k, v in native_launches.items()},
                                    "cond_train": cond_train_launches["flash_mha"]},
+              "staged_launches": staged["launches"]["staged"]["flash_mha"],
+              "encode_launches": staged["launches"]["encode"]["flash_mha"],
               "grad_ms": grad_t["ms"], "grad_graph_ms": grad_t["graph_ms"], "grad_library_ms": grad_t["library_ms"],
               "grad_library_graph_ms": grad_t["library_graph_ms"], "max_abs_err": at_err["f32"]}
     keys = ("ms", "graph_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_graph_ms")
     kernels = [{**gn_row, **{k: gn_t[k] for k in keys}}, {**at_row, **{k: at_t[k] for k in keys}}]
     for k in kernels:
-        if not k["launches"] > 0:
-            fail(f"kernel {k['name']} was not launched on the main path")
+        if not (k["launches"] > 0 and k["staged_launches"] > 0 and k["encode_launches"] > 0):
+            fail(f"kernel {k['name']} was not launched on the main path, the staged path or encode's: "
+                 f"{k['launches']}, {k['staged_launches']}, {k['encode_launches']}")
     if not (train_launches["flash_mha"] > 0 and train_launches["FlashMHA.backward"] > 0):
         fail("flash_mha and its backward were not launched on the training path")
     if not all(v["flash_mha"] > 0 and v["FlashMHA.backward"] > 0 for v in dp_launches.values()):

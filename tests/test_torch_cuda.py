@@ -5,6 +5,8 @@ GPU-marked tests run on a machine with a card and no JAX:
 
 Without a card those tests skip; the CPU dispatch tests run everywhere."""
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -627,12 +629,11 @@ def test_graph_replay_is_bitwise_the_eager_request(eta):
     pipe = _tiny_fused_pipeline()
 
     def run(fuse):
-        pipe.fuse = fuse
         before = (gn.group_norm_silu.launches, at.flash_mha.launches)
-        out = pipe(batch_size=2, steps=3, eta=eta, generator=_gen(1), step_generator=[_gen(2), _gen(3)],
-                   return_arrays=True, pcm16=True)
+        with contextlib.nullcontext() if fuse else pipe._uncaptured():
+            out = pipe(batch_size=2, steps=3, eta=eta, generator=_gen(1), step_generator=[_gen(2), _gen(3)],
+                       return_arrays=True, pcm16=True)
         torch.cuda.synchronize()
-        pipe.fuse = True
         return out, (gn.group_norm_silu.launches - before[0], at.flash_mha.launches - before[1])
 
     run(True)  # captures the program
@@ -793,8 +794,8 @@ def test_capture_beside_another_thread_copying_to_the_host():
         stop.set()
         thread.join(timeout=60)
     assert not thread.is_alive() and not errors and copies and len(pipe._compiled) == 1
-    pipe.fuse = False
-    eager = pipe(batch_size=2, steps=3, generator=_gen(1), return_arrays=True)
+    with pipe._uncaptured():
+        eager = pipe(batch_size=2, steps=3, generator=_gen(1), return_arrays=True)
     assert all(torch.equal(a, b) for a, b in zip(graph, eager))
 
 
@@ -833,3 +834,167 @@ def test_a_failed_capture_raises_and_caches_nothing():
     out = subprocess.run([sys.executable, "-c", FAILING_CAPTURE], cwd=repo, capture_output=True, text=True,
                          timeout=600)
     assert "raised True" in out.stdout, out.stdout + out.stderr[-3000:]
+
+
+# ------------------------------------- the staged path and encode: one CUDA graph per stage signature
+
+def _tiny_latent_pipeline():
+    """A tiny latent pipeline on the card: the VAE, an attention level in the
+    UNet, the GroupNorm+SiLU kernel, Mel 16x16."""
+    from audio_diffusion_torch.mel import Mel
+    from audio_diffusion_torch.models import AutoencoderKL, UNet2D, UNetConfig, VAEConfig
+    from audio_diffusion_torch.pipelines import AudioDiffusionPipeline
+    from audio_diffusion_torch.schedulers import DDIMScheduler
+
+    vae = AutoencoderKL(VAEConfig(block_out_channels=(32, 64), layers_per_block=1, norm_num_groups=8,
+                                  sample_size=16)).init_params(torch.Generator().manual_seed(1))
+    cfg = UNetConfig(sample_size=vae.config.latent_hw(16, 16), block_out_channels=(32, 64),
+                     down_block_types=("DownBlock2D", "AttnDownBlock2D"),
+                     up_block_types=("AttnUpBlock2D", "UpBlock2D"), layers_per_block=1, norm_num_groups=8,
+                     fused_groupnorm=True)
+    unet = UNet2D(cfg).init_params(torch.Generator().manual_seed(0))
+    return AudioDiffusionPipeline(unet, Mel(x_res=16, y_res=16, device="cuda"), DDIMScheduler(), vae, device="cuda")
+
+
+def _clips(seed, rows):
+    return np.random.default_rng(seed).standard_normal((rows, 16 * 512)).astype(np.float32) * 0.3
+
+
+def _staged_and_uncaptured(pipe, make):
+    """``make()``'s request staged (capturing on its first signature) and
+    uncaptured, each with the kernels' launches it counted."""
+    out = {}
+    for name in ("staged", "uncaptured"):
+        before = (gn.group_norm_silu.launches, at.flash_mha.launches)
+        pipe.fuse = False
+        try:
+            with pipe._uncaptured() if name == "uncaptured" else contextlib.nullcontext():
+                result = pipe(return_arrays=True, **make())
+        finally:
+            pipe.fuse = True
+        torch.cuda.synchronize()
+        out[name] = (result, (gn.group_norm_silu.launches - before[0], at.flash_mha.launches - before[1]))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch, clips", [(1, "batched"), (8, "batched"), (8, "single")])
+def test_staged_replay_is_bitwise_the_uncaptured_request(batch, clips):
+    """fuse=False replays one graph per stage (prep, denoise, decode, audio):
+    spectrograms and int16 audio bitwise the uncaptured request's, the
+    spectrograms bitwise the fused program's, and one replay credits the
+    uncaptured request's launches; audio-to-audio from a clip per row and
+    from one clip broadcast over the batch (a posterior sample)."""
+    _cuda()
+    pipe = _tiny_latent_pipeline()
+
+    def make():
+        raw_audio = _clips(batch, batch) if clips == "batched" else _clips(batch, 1)[0]
+        return dict(batch_size=batch, raw_audio=raw_audio, start_step=1, steps=4, eta=0.5,
+                    generator=_gen(1), step_generator=[_gen(10 + i) for i in range(batch)], mask_start_secs=0.05,
+                    pcm16=True)
+
+    _staged_and_uncaptured(pipe, make)  # captures the stages
+    assert [k[0] for k in pipe._compiled] == ["prep", "denoise", "vae_decode", "audio"]
+    assert all(p.graphs for p in pipe._compiled.values())
+    runs = _staged_and_uncaptured(pipe, make)
+    (staged, launches), (eager, eager_launches) = runs["staged"], runs["uncaptured"]
+    assert all(torch.equal(a, b) for a, b in zip(staged, eager))
+    assert launches == eager_launches and launches[0] > 0 and launches[1] > 0
+    fused = pipe(return_arrays=True, **make())
+    assert torch.equal(fused[0], staged[0])
+
+
+@pytest.mark.cuda
+def test_stochastic_staged_request_in_segments_replays_bitwise(monkeypatch):
+    """A denoise stage over STEP_NOISE_BYTES is several graphs, each
+    segment's step noise copied in just before its replay."""
+    _cuda()
+    from audio_diffusion_torch.pipelines import pipeline as pipeline_module
+
+    pipe = _tiny_latent_pipeline()
+    monkeypatch.setattr(pipeline_module, "STEP_NOISE_BYTES", 2 * 2 * 8 * 8 * 4)  # two steps of batch 2
+
+    def make():
+        return dict(batch_size=2, steps=5, eta=1.0, generator=_gen(2), step_generator=_gen(3))
+
+    _staged_and_uncaptured(pipe, make)
+    (denoise,) = [p for k, p in pipe._compiled.items() if k[0] == "denoise"]
+    assert denoise.segments == [(0, 2), (2, 4), (4, 5)] and len(denoise.graphs) == 3
+    runs = _staged_and_uncaptured(pipe, make)
+    assert all(torch.equal(a, b) for a, b in zip(runs["staged"][0], runs["uncaptured"][0]))
+
+
+@pytest.mark.cuda
+def test_a_second_staged_request_with_the_same_key_gives_its_own_result():
+    """The re-noised input, the mask's columns, the noise, the step noise and
+    the phase are the stage graphs' inputs: a second request with the same
+    signature and other data replays the same graphs and gives its own
+    (uncaptured) result, and the first request's outputs outlive it."""
+    _cuda()
+    pipe = _tiny_latent_pipeline()
+
+    def make(seed):
+        return lambda: dict(batch_size=2, raw_audio=_clips(seed, 2), start_step=2, steps=4,
+                            generator=_gen(seed), mask_start_secs=0.05, mask_end_secs=0.05)
+
+    first = _staged_and_uncaptured(pipe, make(1))["staged"][0]
+    kept = [t.clone() for t in first]
+    graphs = {k: p.graphs for k, p in pipe._compiled.items()}
+    runs = _staged_and_uncaptured(pipe, make(2))
+    assert {k: p.graphs for k, p in pipe._compiled.items()} == graphs
+    assert all(torch.equal(a, b) for a, b in zip(runs["staged"][0], runs["uncaptured"][0]))
+    assert all(torch.equal(a, b) for a, b in zip(first, kept)) and not torch.equal(first[0], runs["staged"][0][0])
+
+
+@pytest.mark.cuda
+def test_encode_replay_is_bitwise_the_uncaptured_inversion():
+    """encode replays ("vae_encode_mode", ...) and ("encode", steps, ...):
+    bitwise the uncaptured inversion, for other images too, each result a
+    tensor of its own that outlives the next replay."""
+    _cuda()
+    pipe = _tiny_latent_pipeline()
+    images = [pipe(batch_size=2, steps=3, generator=_gen(s)).images for s in (4, 5)]
+    first = pipe.encode(images[0], steps=6)
+    kept = first.clone()
+    assert [k[0] for k in pipe._compiled if k[0] != "fused"] == ["vae_encode_mode", "encode"]
+    before = gn.group_norm_silu.launches
+    second = pipe.encode(images[1], steps=6)
+    torch.cuda.synchronize()
+    replay_launches = gn.group_norm_silu.launches - before
+    with pipe._uncaptured():
+        before = gn.group_norm_silu.launches
+        eager = [pipe.encode(im, steps=6) for im in images]
+        torch.cuda.synchronize()
+        eager_launches = (gn.group_norm_silu.launches - before) // 2
+    assert torch.equal(first, kept) and torch.equal(first, eager[0]) and torch.equal(second, eager[1])
+    assert replay_launches == eager_launches > 0
+
+
+@pytest.mark.cuda
+def test_a_stage_captured_outside_the_window_is_not_replayed_inside_it():
+    """cuDNN's flag is in every stage's key: inside the batcher's window
+    (cuDNN off) a staged call captures its own stages and gives the
+    uncaptured result with cuDNN off, not a replay of the cuDNN kernels."""
+    _cuda()
+    from audio_diffusion_torch.utils import batch_invariant
+
+    pipe = _tiny_latent_pipeline()
+
+    def make():
+        return dict(batch_size=2, steps=3, generator=_gen(6))
+
+    enabled = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = True
+    try:
+        _staged_and_uncaptured(pipe, make)
+        outside, fixed_outside = dict(pipe._compiled), pipe._fixed_key()
+        with batch_invariant.window():
+            runs = _staged_and_uncaptured(pipe, make)
+            inside, fixed_inside = {k: p for k, p in pipe._compiled.items() if k not in outside}, pipe._fixed_key()
+    finally:
+        torch.backends.cudnn.enabled = enabled
+    assert fixed_outside[3] is True and fixed_inside[3] is False  # cudnn.enabled
+    assert len(inside) == len(outside) == 3 and all(p.graphs for p in inside.values())
+    assert all(k[-len(fixed_inside):] == fixed_inside for k in inside)
+    assert all(torch.equal(a, b) for a, b in zip(runs["staged"][0], runs["uncaptured"][0]))

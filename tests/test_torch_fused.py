@@ -2,14 +2,15 @@
 package's ``_fused_generate_fn``), mirroring tests/test_pipeline.py:331-475 on
 tiny pipelines on the CPU, where the program function runs without a capture:
 
-- ``fuse=True`` against ``fuse=False`` (the eager path): bitwise equal
+- ``fuse=True`` against the eager path (``pipe._uncaptured()``): bitwise equal
   spectrograms and audio within 1 int16 LSB (the JAX package's own bound for
   fused against staged), and the generators left in the same state, so the
   draws were made in the eager order; for generated noise with pcm16, user
   noise with eta 0.5 and a step generator, DDPM, per-row step generators,
   the latent conditional path, audio-to-audio batched and single with masks,
   and a stochastic request split into several segments;
-- ``return_images_only`` stays eager and caches nothing;
+- ``return_images_only`` runs the staged path's prep, denoise and decode
+  programs (tests/test_torch_staged.py holds the staged path);
 - against the JAX package's fused path with the JAX draws injected, at the
   tolerances of tests/test_torch_pipeline.py;
 - the cache: one program per signature, a new one for other steps, eta,
@@ -98,12 +99,11 @@ CASES = {
 
 
 def _run(pipe, fuse, kw):
-    pipe.fuse = fuse
-    try:
-        raw, audio = pipe(return_arrays=True, **kw)
-    finally:
-        pipe.fuse = True
-    return raw, audio
+    """The fused call, or without ``fuse`` the eager one, op by op outside any program."""
+    if fuse:
+        return pipe(return_arrays=True, **kw)
+    with pipe._uncaptured():
+        return pipe(return_arrays=True, **kw)
 
 
 def _states(kw):
@@ -146,12 +146,15 @@ def test_stochastic_request_in_segments_matches_eager(latent, monkeypatch):
         assert torch.equal(a, b)
 
 
-def test_return_images_only_stays_eager(latent):
-    """As in the JAX package (pipeline.py:452): no program, the fused call's spectrograms."""
+def test_return_images_only_runs_the_stage_programs(latent):
+    """As in the JAX package (pipeline.py:452, 505-591): off the fused
+    program, onto the staged path's programs, denoise and decode (no prep
+    without input audio, no audio stage); the fused call's spectrograms."""
     latent._compiled.clear()
     raw = latent(batch_size=2, steps=3, generator=_generators(20), return_images_only=True)
-    assert latent._compiled == {}
+    assert [k[0] for k in latent._compiled] == ["denoise", "vae_decode"]
     fused, _ = latent(batch_size=2, steps=3, generator=_generators(20), return_arrays=True)
+    assert raw.dtype == np.uint8 and raw.shape == (2, 32, 32)
     np.testing.assert_array_equal(raw, fused.numpy())
 
 
