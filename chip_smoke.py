@@ -68,6 +68,15 @@ Phases, one line each (plus detail lines):
              batcher's window: the calls whose row depends on the batch, the
              drift they cause (none in the window, or the run fails), the
              forward's time with and without the f32 row blocks.
+             [bench] (after [serve] f32): the port's measurement programs
+             through their main(argv) at full width: ``bench`` (batch 32, 50
+             steps, 5 requests x 3 windows) and ``bench --latency`` on this
+             pipeline, ``scripts.stage_ledger --batch 32`` and ``scripts.mfu
+             --batch 32`` on it, ``scripts.bench_serving`` (16 clients, tiers
+             up to 8, 5 s) on the directory [serve] saved; each prints one
+             JSON line, checked: on the card, no field missing or 0, the gates
+             within bounds, 3,200 GroupNorm and 300 attention launches per
+             bench request, mfu in (0, 1.05], nothing served failed
              [memory]: what a group left reserved before and after the cycle
              collector (after the main, cond, train and dp groups); more than
              0.25 GiB freed by the collector alone fails
@@ -153,7 +162,8 @@ requests; ``staged_launches``: the [staged] requests' staged replays;
 [apps] calls; ``cond_launches``: the
 [cond] requests; ``train_launches``: the [train] run's forwards and
 backwards; ``dp_launches``: each [dp] rank's forwards and backwards;
-``shard_launches``: the [shard] calls and requests; ``interop_launches``:
+``shard_launches``: the [shard] calls and requests; ``bench_launches``: the
+[bench] phase's programs; ``interop_launches``:
 each [native] layout's request and the [cond-train] run), error and times, the card's
 name and power limit as nvidia-smi prints them, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -177,8 +187,6 @@ REQUESTS = ((1, 101), (8, 102), (32, 103))  # (batch, generator seed)
 FUSED_PROFILES = 3  # [fused], [staged]: profiled replays allowed to see the credited launches (profiled_launches)
 STAGED_REPS = 3  # [staged]: calls per path, batch and kind; the median wall is printed
 STAGED_IMAGES_BATCH = ROUND_TRIP_BATCH = 8  # [staged]: return_images_only, and encode's round trip
-GL_BOUND = 2.41 + 1.1  # bench.py:212-214, 256x256 hop 512
-VAE_BOUND = 2.0  # bench.py:231-232, uint8 MAE
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense): the bounds' denominators.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12  # tensor cores
@@ -203,7 +211,6 @@ COND_SDPA = 32  # SDPA calls per UNet forward: 16 Transformer2D x (attn1, attn2)
 COND_TIMED_BATCH = 16
 COND_SERVE_TIER = 4
 ENCODER_CLIPS = 4  # synthetic 10 s clips at 22,050 Hz, one encoder slice each
-GL_BOUND_512 = 3.21 + 1.1  # bench.py:211-213, 512x512 hop 512
 # The training slice: FlashMHA's gradients on every route ((B, h, N, d), dtype).
 ATTN_GRAD_CASES = (((32, 64, 4, 8), "float32"), ((32, 64, 4, 8), "bfloat16"), ((32, 64, 1, 8), "float32"),
                    ((32, 64, 1, 8), "bfloat16"), ((8, 64, 256, 8), "bfloat16"), ((2, 64, 1024, 8), "bfloat16"),
@@ -244,9 +251,12 @@ def fail(msg: str) -> None:
 
 
 def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
+    """The first card's name and power limit as nvidia-smi prints them."""
+    import torch
+
+    from audio_diffusion_torch.utils.measure import device_block
+
+    return device_block(torch.device("cuda", 0))["nvidia_smi"]
 
 
 def cuda_time_ms(fn, reps: int) -> float:
@@ -641,19 +651,9 @@ def phase_attention_sweep(card: str):
 
 
 def build_pipeline():
-    import torch
+    from audio_diffusion_torch.bench import build_latent_pipeline
 
-    from audio_diffusion_torch.mel import Mel
-    from audio_diffusion_torch.models import AutoencoderKL, UNet2D, VAEConfig, unconditional_config
-    from audio_diffusion_torch.pipelines import AudioDiffusionPipeline
-    from audio_diffusion_torch.schedulers import DDIMScheduler
-
-    vae_cfg = VAEConfig(sample_size=256, dtype="bfloat16")
-    vae = AutoencoderKL(vae_cfg).init_params(torch.Generator().manual_seed(1))
-    cfg = unconditional_config(sample_size=vae_cfg.latent_hw(256, 256), dtype="bfloat16", fused_groupnorm=True)
-    unet = UNet2D(cfg).init_params(torch.Generator().manual_seed(0))
-    mel = Mel(x_res=256, y_res=256, hop_length=512, device="cuda")
-    return AudioDiffusionPipeline(unet, mel, DDIMScheduler(), vae, device="cuda")
+    return build_latent_pipeline(256, "bfloat16", fused_groupnorm=True, device="cuda", seed=0)
 
 
 def phase_main(pipe, card: str):
@@ -678,6 +678,7 @@ def phase_main(pipe, card: str):
 
     for c in counters:
         c.launches = 0
+    walls = {}
     for b, seed in REQUESTS:
         before = [c.launches for c in counters]
         gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -686,7 +687,7 @@ def phase_main(pipe, card: str):
         raw, audio = pipe(batch_size=b, steps=STEPS, generator=gen, return_arrays=True)
         pcm = pcm16_quantize(audio)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        wall = walls[b] = time.perf_counter() - t0
         finite = bool(torch.isfinite(audio).all().item())
         raw_np, pcm_np = raw.cpu().numpy(), pcm.cpu().numpy()
         delta = [c.launches - x for c, x in zip(counters, before)]
@@ -706,7 +707,7 @@ def phase_main(pipe, card: str):
               f"{int(np.abs(pcm_np.astype(np.int32)).max())}, spectrogram std {raw_np.std():.3f}  [{card}]")
     launches = {c.__name__: c.launches for c in counters}
     print(f"[main] ok: {len(REQUESTS)} requests at {STEPS} steps; launch counters {launches}")
-    return launches
+    return launches, walls
 
 
 def _http(host: str, port: int, method: str, path: str, body=None):
@@ -1087,15 +1088,15 @@ def phase_tier(pipe, card: str) -> dict:
     return out
 
 
-def phase_serve(pipe, card: str):
-    """Save the full-width pipeline in the diffusers layout, load it through
+def phase_serve(pipe, card: str, save_dir: Path):
+    """Save the full-width pipeline in the diffusers layout into ``save_dir``
+    (which [bench] serves again), load it through
     ``make_server`` (bf16, fused GroupNorm) and answer concurrent HTTP
     requests: pure generation, audio-to-audio at start_step 25 and eta > 0,
     all at 50 steps. The kernels' counters must show every served batch went
     through both kernels."""
     import base64
     import io
-    import tempfile
     import wave
 
     import numpy as np
@@ -1105,15 +1106,14 @@ def phase_serve(pipe, card: str):
     from audio_diffusion_torch.ops import fused_groupnorm as gn
     from audio_diffusion_torch.serving import make_server
 
-    with tempfile.TemporaryDirectory() as d:
-        t0 = time.perf_counter()
-        pipe.save_pretrained(d)
-        t_save = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        server = make_server(d, dtype="bfloat16", fused_groupnorm=True, device="cuda", port=0, max_batch=SERVE_TIER,
-                             max_wait_ms=1000, steps=STEPS, allowed_etas=[SERVE_ETA],
-                             allowed_start_steps=[SERVE_START_STEP])
-        t_load = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pipe.save_pretrained(str(save_dir))
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    server = make_server(str(save_dir), dtype="bfloat16", fused_groupnorm=True, device="cuda", port=0,
+                         max_batch=SERVE_TIER, max_wait_ms=1000, steps=STEPS, allowed_etas=[SERVE_ETA],
+                         allowed_start_steps=[SERVE_START_STEP])
+    t_load = time.perf_counter() - t0
     served = server.batcher.pipe
     for a, b in ((served.unet, pipe.unet), (served.vqvae, pipe.vqvae)):
         if a.config != b.config:
@@ -1659,40 +1659,151 @@ def phase_unet_reference():
     print(f"[ref] ok: f32 UNet forward, card (kernels) vs CPU (plain): max abs err {err:.3g} (tol {tol:.3g})")
 
 
-def phase_fidelity(pipe, card: str, gl_bound: float = GL_BOUND):
-    import numpy as np
-    import torch
-
-    from audio_diffusion_torch.models import AutoencoderKL
+def phase_fidelity(pipe, card: str):
+    """bench.py's gates as ``audio_diffusion_torch.bench`` holds them: the
+    Griffin-Lim round trip through the pipeline's projection (``fft``) and the
+    ``matmul`` one, and the bf16 VAE round trip against f32."""
+    from audio_diffusion_torch import bench
 
     mel = pipe.mel
-    rng = np.random.default_rng(0)
-    tt = np.arange(mel.slice_size) / mel.get_sample_rate()
-    audio = sum(np.sin(2 * np.pi * f * tt) * a for f, a in ((220.0, 0.5), (587.33, 0.3), (1760.0, 0.2)))
-    audio = (audio + 0.1 * rng.standard_normal(mel.slice_size)).astype(np.float32)
-    img = mel.spectrogram_images_from_audio(audio[None])
-    maes = {}
-    for proj in ("fft", "matmul"):
-        rec = mel.images_to_audio(img, projection=proj)[0]
-        rec = torch.nn.functional.pad(rec, (0, mel.slice_size - rec.shape[0]))
-        img2 = mel.spectrogram_images_from_audio(rec[None])
-        maes[proj] = (img.float() - img2.float()).abs().mean().item()
-        if not maes[proj] < gl_bound:
-            fail(f"GL round-trip MAE ({proj}) {maes[proj]:.4f} >= {gl_bound}")
-
-    x = (img.float() / 255.0 * 2 - 1)[..., None]  # (1, y_res, x_res, 1)
-    vae32 = AutoencoderKL(dataclasses.replace(pipe.vqvae.config, dtype="float32"))
-    vae32.load_state_dict(pipe.vqvae.state_dict(), strict=True)
-    vae32 = vae32.to("cuda").eval()
-    with torch.inference_mode():
-        rec_b = pipe.vqvae.decode(pipe.vqvae.encode(x).mode()).float()
-        rec_32 = vae32.decode(vae32.encode(x).mode())
-    vae_mae = (rec_b - rec_32).abs().mean().item() * 127.5
-    if not vae_mae < VAE_BOUND:
-        fail(f"bf16 VAE round trip drifted {vae_mae:.4f} uint8-MAE from f32 (bound {VAE_BOUND})")
+    gl_bound = bench.gl_bound(mel)
+    maes = {proj: bench.gl_roundtrip_mae(mel, proj) for proj in ("fft", "matmul")}
+    for proj, mae in maes.items():
+        if not mae < gl_bound:
+            fail(f"GL round-trip MAE ({proj}) {mae:.4f} >= {gl_bound}")
+    vae_mae = bench.vae_dtype_mae(pipe.vqvae, mel)
+    if not vae_mae < bench.VAE_MAE_BOUND:
+        fail(f"bf16 VAE round trip drifted {vae_mae:.4f} uint8-MAE from f32 (bound {bench.VAE_MAE_BOUND})")
     print(f"[fidelity] ok at {mel.y_res}x{mel.x_res} hop {mel.hop_length}: gl_roundtrip_mae fft {maes['fft']:.4f}, "
-          f"matmul {maes['matmul']:.4f} (< {gl_bound:.2f}); vae_dtype_mae {vae_mae:.4f} (< {VAE_BOUND:.2f})  [{card}]")
+          f"matmul {maes['matmul']:.4f} (< {gl_bound:.2f}); vae_dtype_mae {vae_mae:.4f} (< "
+          f"{bench.VAE_MAE_BOUND:.2f})  [{card}]")
     return maes, vae_mae
+
+
+# ------------------------------------------------------------- measurement programs
+
+BENCH_RUNS = (  # (name, argv): each program's main(argv), in-process, at full width on the card
+    ("bench", []),
+    ("bench", ["--latency"]),
+    ("stage_ledger", ["--batch", "32"]),
+    ("mfu", ["--batch", "32"]),
+    ("bench_serving", ["--max_batch", "8", "--clients", "16", "--seconds", "5", "--dtype", "bfloat16"]),
+)
+BENCH_LEDGER_KEYS = ("noise", f"denoise_scan_{STEPS}_steps", "vae_decode", "postprocess_uint8",
+                     "nnls_griffin_lim_x32", "pcm16", "d2h_payload")
+
+
+def _program_line(name: str, argv: list, **kw) -> dict:
+    """``main(argv)`` of one measurement program in-process, its standard
+    output captured: exactly one JSON line, which is printed and parsed."""
+    import io
+
+    from audio_diffusion_torch import bench
+    from audio_diffusion_torch.scripts import bench_serving, mfu, stage_ledger
+
+    main = {"bench": bench.main, "stage_ledger": stage_ledger.main, "mfu": mfu.main,
+            "bench_serving": bench_serving.main}[name]
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        main(argv, **kw)
+    lines = buf.getvalue().strip().splitlines()
+    if len(lines) != 1:
+        fail(f"[bench] {name} {argv} printed {len(lines)} lines, not one JSON line: {lines[:3]}")
+    print(f"[bench] {name} {' '.join(argv)} ({time.perf_counter() - t0:.1f} s): {lines[0]}")
+    return json.loads(lines[0])
+
+
+def _need(line: dict, what: str, *paths) -> None:
+    """Every dotted path in ``line`` is present and not null, and where it is
+    a number, not 0."""
+    for path in paths:
+        v = line
+        for k in path.split("."):
+            v = v.get(k) if isinstance(v, dict) else None
+        if v is None or (isinstance(v, (int, float)) and not isinstance(v, bool) and v == 0):
+            fail(f"[bench] {what}: {path} is {v!r} in {json.dumps(line)[:400]}")
+
+
+def _on_the_card(line: dict, what: str) -> None:
+    import torch
+
+    dev = line["device"]
+    if (dev.get("platform") != "gpu" or dev.get("name") != torch.cuda.get_device_name(0)
+            or dev.get("count") != torch.cuda.device_count() or not dev.get("power_limit_w")):
+        fail(f"[bench] {what} did not run on the card: {dev}")
+
+
+def phase_bench(pipe, card: str, serve_dir: Path, main_walls) -> dict:
+    """The port's measurement programs through their ``main(argv)`` at full
+    width on the card: the bench (b32, 50 steps, 5 requests x 3 windows) and
+    its ``--latency``, the stage ledger and mfu at batch 32 on the [main]
+    pipeline (whose programs they replay where the signature matches), and
+    bench_serving on the directory [serve] saved. Every line is checked: on
+    the card, no field missing or 0, the gates within their bounds, 3,200
+    GroupNorm and 300 attention launches per bench request, mfu in (0, 1.05],
+    bench_serving served without a failed request. Returns the kernels'
+    launches over the phase."""
+    from audio_diffusion_torch import bench
+    from audio_diffusion_torch.ops import attention as at
+    from audio_diffusion_torch.ops import fused_groupnorm as gn
+    from audio_diffusion_torch.scripts import mfu
+
+    counters = (gn.group_norm_silu, at.flash_mha)
+    for c in counters:
+        c.launches = 0
+    t_start = time.perf_counter()
+    lines = {}
+    for name, argv in BENCH_RUNS:
+        what = f"{name} {' '.join(argv)}".strip()
+        if name == "bench_serving":
+            line = lines[what] = _program_line(name, ["--model", str(serve_dir), *argv])
+        else:
+            line = lines[what] = _program_line(name, argv, pipe=pipe)
+        _on_the_card(line, what)
+        if name == "bench":
+            _need(line, what, "metric", "value", "unit", "reps", "fidelity.gl_roundtrip_mae", "fidelity.vae_dtype_mae",
+                  "setup.first_call_s", "launches.requests", "config.steps", "config.dtype")
+            cfg, fid = line["config"], line["fidelity"]
+            want = {"batch": 1 if argv else 32, "steps": STEPS, "resolution": [256, 256], "dtype": "bfloat16",
+                    "fused_groupnorm": True, "fuse": True}
+            if {k: cfg.get(k) for k in want} != want:
+                fail(f"[bench] {what}: config {cfg}, expected {want}")
+            if not (all(r > 0 for r in line["reps"]) and fid["gl_roundtrip_mae"] < fid["gl_bound"] <= 2.41 + 1.1
+                    and fid["vae_dtype_mae"] < bench.VAE_MAE_BOUND
+                    and fid["fused_staged_audio_lsb"] <= bench.AUDIO_LSB_BOUND):
+                fail(f"[bench] {what}: a window or a gate out of bounds: reps {line['reps']}, fidelity {fid}")
+            per = line["launches"]["per_request"]
+            if per != {"group_norm_silu": 64.0 * STEPS, "flash_mha": 6.0 * STEPS}:
+                fail(f"[bench] {what}: launches per request {per}, expected {64 * STEPS} and {6 * STEPS}")
+        elif name == "stage_ledger":
+            if set(line["ms_per_batch"]) != set(BENCH_LEDGER_KEYS):
+                fail(f"[bench] {what}: stages {sorted(line['ms_per_batch'])}, expected {sorted(BENCH_LEDGER_KEYS)}")
+            _need(line, what, *(f"ms_per_batch.{k}" for k in BENCH_LEDGER_KEYS), "stage_sum_ms", "fused_e2e_ms",
+                  "d2h_payload_mb")
+            if not all(v > 0 for v in line["ms_per_batch"].values()) or line["config"]["batch"] != 32:
+                fail(f"[bench] {what}: a stage's time is not positive or the batch is not 32: {line}")
+        elif name == "mfu":
+            _need(line, what, "denoise_scan.gflops", "denoise_scan.ms", "vae_decode.gflops", "vae_decode.ms",
+                  "request.ms", "mfu", "peak_tflops")
+            shares = [line[k]["mfu"] for k in ("denoise_scan", "vae_decode", "request")] + [line["mfu"]]
+            if not all(0 < v <= mfu.MFU_IMPOSSIBLE for v in shares):
+                fail(f"[bench] {what}: mfu {shares} out of (0, {mfu.MFU_IMPOSSIBLE}]")
+        else:
+            _need(line, what, "serving_samples_per_sec", "direct_samples_per_sec", "batching_efficiency", "served",
+                  "latency.p50_latency_s")
+            if line["failed"] != 0 or line["config"]["direct_programs_made"] != 0:
+                fail(f"[bench] {what}: {line['failed']} failed requests, {line['config']['direct_programs_made']} "
+                     "programs captured by the direct ceiling")
+    launches = {c.__name__: c.launches for c in counters}
+    b32, serving = lines["bench"]["value"], lines[what]  # what: the last run, bench_serving
+    main_b32 = f"{32 / main_walls[32]:.4f} samples/s ({main_walls[32]:.4f} s)" if main_walls else "not run"
+    print(f"[bench] ok in {time.perf_counter() - t_start:.1f} s: bench b32 {b32:.4f} samples/s (best of "
+          f"{len(lines['bench']['reps'])} windows, pcm16 and the copy to the host) beside [main]'s b32 replay "
+          f"{main_b32}, not gated; latency {lines['bench --latency']['value']:.4f} s; mfu of the request "
+          f"{lines['mfu --batch 32']['mfu']:.4f}; served {serving['serving_samples_per_sec']:.4f} samples/s; "
+          f"launches over the phase {launches}  [{card}]")
+    return launches
 
 
 # ------------------------------------------------------------ conditional tier
@@ -3255,7 +3366,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive the port's paths on one GPU and check them.")
     ap.add_argument("--only", default=",".join(PHASE_GROUPS),
                     help="comma-separated phase groups for a partial run (kernels: gn, attn, attn-sweep, ref; main: "
-                         "main, layers, profile, fused, staged, fidelity, serve, serve f32, tier; apps: apps, prepare, "
+                         "main, layers, profile, fused, staged, fidelity, serve, serve f32, tier, bench; apps: apps, "
+                         "prepare, "
                          "golden; cond; train: "
                          "attn-grad, train, train-pixel, train-vae; dp: dp, shard, encoder-train; interop: native, "
                          "cond-train); a partial run prints no result lines")
@@ -3264,9 +3376,9 @@ def main(argv=None) -> int:
         ap.add_argument(f"--dp-{name}", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     only = set(args.only.split(","))
-    if not only <= {*PHASE_GROUPS, "tier", "shard"}:
-        ap.error(f"--only takes {PHASE_GROUPS}, tier (the [serve] phase's tier probe alone) and shard (the dp "
-                 "group without [dp])")
+    if not only <= {*PHASE_GROUPS, "tier", "shard", "bench"}:
+        ap.error(f"--only takes {PHASE_GROUPS}, tier (the [serve] phase's tier probe alone), shard (the dp "
+                 "group without [dp]) and bench (the main group's [bench] alone)")
     if not (REPO / "audio_diffusion_torch" / "csrc").is_dir():
         print("chip_smoke: audio_diffusion_torch/ not found beside this script; run it from a checkout",
               file=sys.stderr)
@@ -3307,13 +3419,17 @@ def main(argv=None) -> int:
         print(f"[main] built full-width latent-256 pipeline (bf16, fused GroupNorm) in "
               f"{time.perf_counter() - t0:.2f} s")
     if "main" in only:
-        launches = phase_main(pipe, card)
+        import tempfile
+
+        launches, main_walls = phase_main(pipe, card)
         phase_layers(pipe, card)
         phase_fused(pipe, card, phase_profile(pipe, card))
         staged = phase_staged(pipe, card)
         phase_fidelity(pipe, card)
-        serve_launches = phase_serve(pipe, card)
-        phase_serve_f32(pipe, card)
+        with tempfile.TemporaryDirectory() as serve_dir:
+            serve_launches = phase_serve(pipe, card, Path(serve_dir))
+            phase_serve_f32(pipe, card)
+            bench_launches = phase_bench(pipe, card, Path(serve_dir), main_walls)
         print(f"[time] the main group done at {time.perf_counter() - t_start:.1f} s")
     if "apps" in only:
         apps_launches = phase_apps(pipe, card)
@@ -3332,6 +3448,15 @@ def main(argv=None) -> int:
     if "tier" in only and "main" not in only:
         phase_tier(build_pipeline(), card)
         torch.cuda.empty_cache()
+    if "bench" in only and "main" not in only:
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as serve_dir:
+            bench_pipe = build_pipeline()
+            bench_pipe.save_pretrained(serve_dir)
+            phase_bench(bench_pipe, card, Path(serve_dir), None)
+        del bench_pipe
+        torch.cuda.empty_cache()
     if "cond" in only:
         t0 = time.perf_counter()
         cond_pipe = build_cond_pipeline()
@@ -3341,7 +3466,7 @@ def main(argv=None) -> int:
         cond_launches = phase_cond(cond_pipe, encodings, card)
         phase_cond_reference(cond_pipe, encodings)
         phase_cond_timing(cond_pipe, encodings, card)
-        phase_fidelity(cond_pipe, card, GL_BOUND_512)
+        phase_fidelity(cond_pipe, card)
         phase_cond_serve(cond_pipe, encodings, card)
         del cond_pipe
         release_device_memory("the conditional group")
@@ -3389,6 +3514,7 @@ def main(argv=None) -> int:
                                    "cond_train": cond_train_launches["group_norm_silu"]},
               "staged_launches": staged["launches"]["staged"]["group_norm_silu"],
               "encode_launches": staged["launches"]["encode"]["group_norm_silu"],
+              "bench_launches": bench_launches["group_norm_silu"],
               "max_abs_err": gn_err["f32"], "bf16_max_ulps": gn_err["bf16_ulps"]}
     at_row = {"name": "flash_mha", "route": "cuda", "source": "audio_diffusion_torch/csrc/mha.cu",
               "replaces": "audio_diffusion_tpu/ops/pallas_attention.py:55", "launches": launches["flash_mha"],
@@ -3403,14 +3529,17 @@ def main(argv=None) -> int:
                                    "cond_train": cond_train_launches["flash_mha"]},
               "staged_launches": staged["launches"]["staged"]["flash_mha"],
               "encode_launches": staged["launches"]["encode"]["flash_mha"],
+              "bench_launches": bench_launches["flash_mha"],
               "grad_ms": grad_t["ms"], "grad_graph_ms": grad_t["graph_ms"], "grad_library_ms": grad_t["library_ms"],
               "grad_library_graph_ms": grad_t["library_graph_ms"], "max_abs_err": at_err["f32"]}
     keys = ("ms", "graph_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_graph_ms")
     kernels = [{**gn_row, **{k: gn_t[k] for k in keys}}, {**at_row, **{k: at_t[k] for k in keys}}]
     for k in kernels:
-        if not (k["launches"] > 0 and k["staged_launches"] > 0 and k["encode_launches"] > 0):
-            fail(f"kernel {k['name']} was not launched on the main path, the staged path or encode's: "
-                 f"{k['launches']}, {k['staged_launches']}, {k['encode_launches']}")
+        if not (k["launches"] > 0 and k["staged_launches"] > 0 and k["encode_launches"] > 0
+                and k["bench_launches"] > 0):
+            fail(f"kernel {k['name']} was not launched on the main path, the staged path, encode's or the "
+                 f"measurement programs': {k['launches']}, {k['staged_launches']}, {k['encode_launches']}, "
+                 f"{k['bench_launches']}")
     if not (train_launches["flash_mha"] > 0 and train_launches["FlashMHA.backward"] > 0):
         fail("flash_mha and its backward were not launched on the training path")
     if not all(v["flash_mha"] > 0 and v["FlashMHA.backward"] > 0 for v in dp_launches.values()):

@@ -998,3 +998,64 @@ def test_a_stage_captured_outside_the_window_is_not_replayed_inside_it():
     assert len(inside) == len(outside) == 3 and all(p.graphs for p in inside.values())
     assert all(k[-len(fixed_inside):] == fixed_inside for k in inside)
     assert all(torch.equal(a, b) for a, b in zip(runs["staged"][0], runs["uncaptured"][0]))
+
+
+# ------------------------------------------------------------ measurement programs
+
+@pytest.mark.cuda
+def test_bench_quick_on_the_card_launches_both_kernels_and_passes_its_gates():
+    """``python -m audio_diffusion_torch.bench --quick``'s path in-process:
+    the device block names the card, the timed windows launch each kernel
+    as often as the quick UNet's blocks call it, and the gates pass."""
+    _cuda()
+    from audio_diffusion_torch import bench
+    from audio_diffusion_torch.models import UNet2D, UNetConfig
+    from audio_diffusion_torch.models.unet2d import ResnetBlock2D, SelfAttention2D
+
+    steps = 2
+    out = bench.main(["--quick", "--steps", str(steps), "--iters", "2", "--reps", "2"])
+    assert out["device"]["platform"] == "gpu" and out["device"]["name"] == torch.cuda.get_device_name(0)
+    assert out["device"]["count"] == torch.cuda.device_count() and out["value"] > 0
+    modules = list(UNet2D(UNetConfig(**bench.QUICK_UNET)).modules())
+    per_forward = {"group_norm_silu": 2 * sum(isinstance(m, ResnetBlock2D) for m in modules),
+                   "flash_mha": sum(isinstance(m, SelfAttention2D) for m in modules)}
+    assert out["launches"]["requests"] == 4
+    assert out["launches"]["per_request"] == {k: float(v * steps) for k, v in per_forward.items()}
+    assert out["setup"]["capture_s"] > 0 and out["setup"]["pool_bytes"] >= 0
+    fid = out["fidelity"]
+    assert fid["fused_staged_audio_lsb"] <= bench.AUDIO_LSB_BOUND and fid["gl_roundtrip_mae"] < fid["gl_bound"]
+
+
+@pytest.mark.cuda
+def test_mfu_counts_the_same_on_the_card_as_on_the_cpu():
+    _cuda()
+    from audio_diffusion_torch.scripts import mfu
+
+    card = mfu.main(["--no_time", "--batch", "2", "--steps", "2"])
+    cpu = mfu.main(["--no_time", "--device", "cpu", "--batch", "2", "--steps", "2"])
+    assert card["device"]["platform"] == "gpu" and cpu["device"]["platform"] == "cpu"
+    assert all(card[k] == cpu[k] for k in ("denoise_scan", "vae_decode", "request"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [["--precast"], ["--conditional"]], ids=["precast", "conditional"])
+def test_mfu_times_the_stage_programs(extra):
+    """mfu at full width on a short loop: every share in (0, 1.05]; the
+    precast denoise loop gives the same latents."""
+    _cuda()
+    from audio_diffusion_torch.scripts import mfu
+
+    out = mfu.main(["--batch", "2", "--steps", "2", "--reps", "2", *extra])
+    assert all(0 < out[k]["mfu"] <= mfu.MFU_IMPOSSIBLE for k in ("denoise_scan", "vae_decode", "request"))
+    assert out["mfu"] == out["request"]["mfu"] and out["peak_precision"] == "bfloat16"
+    if "--precast" in extra:
+        assert out["precast_same_latents"] is True
+
+
+@pytest.mark.cuda
+def test_bench_serving_refuses_more_mesh_devices_than_cards():
+    _cuda()
+    from audio_diffusion_torch.scripts import bench_serving
+
+    with pytest.raises(ValueError, match="mesh_data"):
+        bench_serving.main(["--model", "unused", "--mesh_data", str(torch.cuda.device_count() + 1)])
