@@ -28,6 +28,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import dot_product_attention, multi_head_attention
 from ..ops.fused_groupnorm import fused_group_norm_silu
@@ -38,10 +39,12 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 @dataclasses.dataclass(frozen=True)
 class UNetConfig(ConfigMixin):
-    """The JAX package's ``UNetConfig`` fields that change the function, so
-    ``config.json`` files are interchangeable. Its other fields (``norm_dtype``,
-    ``fold_skip_concat``, ``dilated_upsample``, ``remat``) pick XLA/TPU
-    formulations of the same function; ``from_config`` skips them."""
+    """The JAX package's ``UNetConfig`` fields that change the function or
+    its training, so ``config.json`` files are interchangeable. Its other
+    fields (``norm_dtype``, ``fold_skip_concat``, ``dilated_upsample``) pick
+    XLA/TPU formulations of the same function; ``from_config`` skips them.
+    ``remat`` recomputes each block's activations in the backward instead of
+    keeping them (:meth:`UNet2D.forward`)."""
 
     sample_size: Tuple[int, int] = (256, 256)
     in_channels: int = 1
@@ -72,6 +75,7 @@ class UNetConfig(ConfigMixin):
     freq_shift: int = 0
     dtype: str = "float32"  # compute dtype: "float32" | "bfloat16"
     fused_groupnorm: bool = False
+    remat: bool = False
 
     config_name = "config.json"
 
@@ -396,6 +400,14 @@ def _attend(attn: nn.Module, x: torch.Tensor, context: Optional[torch.Tensor]) -
     return attn(x, context) if isinstance(attn, Transformer2D) else attn(x)
 
 
+def _called(fn, *args):
+    return fn(*args)
+
+
+def _checkpointed(fn, *args):
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+
 # ----------------------------------------------------------------------- UNet
 
 class UNet2D(nn.Module):
@@ -505,28 +517,34 @@ class UNet2D(nn.Module):
         temb = timestep_embedding(steps, cfg.block_out_channels[0], cfg.flip_sin_to_cos, cfg.freq_shift)
         temb = self.time_embedding(temb.to(dtype))
 
+        # remat: each ResnetBlock2D, SelfAttention2D and Transformer2D keeps only its inputs, and the
+        # backward runs it again (nn.remat at unet2d.py:613-616). No block draws random numbers, so the RNG
+        # state is not stashed around each of them: on a host-bound step that would cost host time for
+        # nothing. Without grad nothing would be kept anyway, and the blocks run as they are.
+        block = _checkpointed if cfg.remat and torch.is_grad_enabled() else _called
+
         x = self.conv_in(sample.permute(0, 3, 1, 2).to(dtype).contiguous())
         n = len(cfg.block_out_channels)
         skips = [x]
         for i, blk in enumerate(self.down_blocks):
             for j, res in enumerate(blk.resnets):
-                x = res(x, temb, rows)
+                x = block(res, x, temb, rows)
                 if len(blk.attentions):
-                    x = _attend(blk.attentions[j], x, context)
+                    x = block(_attend, blk.attentions[j], x, context)
                 skips.append(x)
             if i != n - 1:
                 x = blk.downsamplers[0](x)
                 skips.append(x)
 
-        x = self.mid_block.resnets[0](x, temb, rows)
-        x = _attend(self.mid_block.attentions[0], x, context)
-        x = self.mid_block.resnets[1](x, temb, rows)
+        x = block(self.mid_block.resnets[0], x, temb, rows)
+        x = block(_attend, self.mid_block.attentions[0], x, context)
+        x = block(self.mid_block.resnets[1], x, temb, rows)
 
         for i, blk in enumerate(self.up_blocks):
             for j, res in enumerate(blk.resnets):
-                x = res(torch.cat([x, skips.pop()], dim=1), temb, rows)
+                x = block(res, torch.cat([x, skips.pop()], dim=1), temb, rows)
                 if len(blk.attentions):
-                    x = _attend(blk.attentions[j], x, context)
+                    x = block(_attend, blk.attentions[j], x, context)
             if i != n - 1:
                 x = blk.upsamplers[0](x)
 

@@ -862,7 +862,8 @@ class AudioDiffusionPipeline:
           (torch_export.py:250-290): ``model_index.json``, then ``unet/``,
           ``scheduler/``, ``mel/`` and ``vqvae/`` with diffusers configs and
           ``diffusion_pytorch_model.bin``. The compute ``dtype`` and
-          ``fused_groupnorm`` are not stored (see :meth:`from_pretrained`).
+          ``fused_groupnorm`` are not stored (see :meth:`from_pretrained`);
+          the UNet's ``remat`` is, when set, as a key diffusers ignores.
         - ``"native"``: what the JAX package's ``save_pretrained`` writes
           (pipeline.py:677-702): the config dataclasses' own JSON (with
           ``dtype`` and ``fused_groupnorm``) and ``params.msgpack``.

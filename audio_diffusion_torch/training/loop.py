@@ -82,7 +82,9 @@ class RunConfig:
     max_steps: Optional[int] = None  # early stop
     push_to_hub: bool = False  # raises: the port has no network path
     device: str = "cuda"  # under a process group a bare "cuda" is the rank's card
-    timing: bool = False  # result["timings"]: per step the host wall and data wait, on CUDA the device times
+    # result["timings"]: per step the host wall and data wait; on CUDA also the device times and the step's peak
+    # allocated bytes (the peak statistics are reset before each step, so a caller reads no run-wide peak)
+    timing: bool = False
 
 
 def load_vae(path: str, device):
@@ -164,13 +166,12 @@ def run_training(run: RunConfig, train: TrainConfig) -> dict:
         # --mixed_precision bf16 overrides the loaded UNet's compute dtype;
         # the VAE keeps its own (loop.py:188-202)
         pipe = AudioDiffusionPipeline.from_pretrained(run.from_pretrained, device=device)
-        unet = pipe.unet
+        unet, vae = pipe.unet, vae if pipe.vqvae is None else pipe.vqvae
+        del pipe  # it holds the loaded UNet on the device, which the bf16 rebuild below replaces
         if run.mixed_precision == "bf16" and unet.config.dtype != "bfloat16":
-            state_dict = unet.state_dict()
-            unet = UNet2D(dataclasses.replace(unet.config, dtype="bfloat16"))
-            unet.load_state_dict(state_dict, strict=True)
-        if pipe.vqvae is not None:
-            vae = pipe.vqvae
+            bf16 = UNet2D(dataclasses.replace(unet.config, dtype="bfloat16"))
+            bf16.load_state_dict(unet.state_dict(), strict=True)
+            unet = bf16
     else:
         if conditional:
             dim = next(iter(encodings.values())).shape[-1]
@@ -223,7 +224,8 @@ def run_training(run: RunConfig, train: TrainConfig) -> dict:
               n_fft=run.n_fft, device=device)
     eval_rng = np.random.default_rng(run.seed + 0x5EED)  # eval encoding picks: a stream of their own
     global_step = state.step
-    losses, waits, step_walls = [], [], []
+    losses, waits, step_walls, step_peaks = [], [], [], []
+    cuda_timing = run.timing and device.type == "cuda"
     last_metrics = None
     t_start = time.time()
     t_last_log = None
@@ -252,8 +254,12 @@ def run_training(run: RunConfig, train: TrainConfig) -> dict:
                 break
             waits.append(time.perf_counter() - t_wait)
             images, enc = batch
+            if cuda_timing:
+                torch.cuda.reset_peak_memory_stats(device)
             state, metrics = step_fn(state, images, enc, seed=run.seed)
             step_walls.append(time.perf_counter() - t_wait)
+            if cuda_timing:  # the allocator books on the host as the step is enqueued: no wait needed
+                step_peaks.append(torch.cuda.max_memory_allocated(device))
             last_metrics = metrics
             losses.append(metrics["loss"])
             global_step += 1
@@ -325,5 +331,6 @@ def run_training(run: RunConfig, train: TrainConfig) -> dict:
     if run.timing:
         result["timings"] = {"step_ms": [1e3 * w for w in step_walls], "data_wait_ms": [1e3 * w for w in waits],
                              "fwd_bwd_ms": [a.elapsed_time(b) for a, b, _ in step_fn.events],
-                             "optimizer_ema_ms": [b.elapsed_time(c) for _, b, c in step_fn.events]}
+                             "optimizer_ema_ms": [b.elapsed_time(c) for _, b, c in step_fn.events],
+                             "peak_allocated_bytes": step_peaks}
     return result

@@ -61,12 +61,15 @@ def unet_config_to_diffusers(config) -> dict:
         cfg["cross_attention_dim"] = config.cross_attention_dim
         cfg["use_linear_projection"] = True
         cfg["mid_block_type"] = "UNetMidBlock2DCrossAttn"
+    if config.remat:  # not a diffusers key (diffusers ignores it): the JAX package's from_pretrained reads it
+        cfg["remat"] = True
     return cfg
 
 
 def unet_config_from_diffusers(config: dict):
     """diffusers UNet config -> the port's ``UNetConfig``; ``dtype`` and
-    ``fused_groupnorm`` are not in the file and take their defaults."""
+    ``fused_groupnorm`` are not in the file and take their defaults, and
+    ``remat`` is read where :func:`unet_config_to_diffusers` wrote it."""
     from ..models.unet2d import UNetConfig
 
     ss = config.get("sample_size", 256)
@@ -89,6 +92,7 @@ def unet_config_from_diffusers(config: dict):
         cross_attention_dim=cross,
         flip_sin_to_cos=config.get("flip_sin_to_cos", True),
         freq_shift=config.get("freq_shift", 0),
+        remat=config.get("remat", False),
     )
 
 

@@ -124,12 +124,27 @@ Phases, one line each (plus detail lines):
              x accum 2, 12 steps, then the same run resumed to 16; losses fall,
              6 x accum forward launches and backwards per step, no GroupNorm
              kernel; the saved pipeline answers a request; step breakdown,
-             peak memory and a profile of 2 steps
- 11. train-pixel  the pixel-256 UNet (bf16, batch 4) takes 3 steps through
+             each step's peak allocated memory and a profile of 2 steps
+ 11. remat   UNetConfig.remat beside the same runs without it: (a) [train]'s
+             pipeline with "remat": true in its unet/config.json through
+             ``run_training(from_pretrained=...)``, micro 16 x accum 2, bf16,
+             cached latents, 4 steps: step 1's loss bitwise, its grad_norm
+             within 1e-3, 2 x 6 x accum flash_mha launches per step (the
+             forward and the recompute) against 6 x accum, 6 x accum
+             backwards, no GroupNorm kernel, each step's peak; the saved
+             pipeline keeps the flag and answers a batch-8 request bitwise as
+             a remat=False copy, with the same launches and graph pool; one
+             microbatch under deterministic algorithms: its largest gradient
+             difference and the memory its forward and backward add, lower
+             with remat.
+             (b) the conditional-latent-512 UNet (no GroupNorm kernel) at the
+             reference's flat batch 16, 3 steps each through make_train_step:
+             peaks, ms per step, losses (step 1 bitwise, the remat peak lower)
+ 12. train-pixel  the pixel-256 UNet (bf16, batch 4) takes 3 steps through
              ``make_train_step``: the mma route under autograd
- 12. train-vae  the 256 LDM VAE with its PatchGAN, generator and
+ 13. train-vae  the 256 LDM VAE with its PatchGAN, generator and
              discriminator steps alternating, the adversarial terms on from step 2
- 13. dp      the [train] setup data parallel, one process per rank through
+ 14. dp      the [train] setup data parallel, one process per rank through
              ``run_training`` (this script re-run with --dp-rank): with 2 or more
              cards NCCL over min(count, 4) ranks, DDP and then FSDP; on one card
              DDP over 2 ranks on cuda:0 with gloo, then DDP and FSDP at world 1
@@ -137,21 +152,21 @@ Phases, one line each (plus detail lines):
              the same, rank 0 alone saves, step 1 within 1e-3 of a one-process
              run, 6 x accum flash_mha launches and FlashMHA backwards per step
              on every rank; steps/s, the all-reduce of the gradient's bytes,
-             each rank's peak memory and device idle share
- 14. shard   the [main] pipeline sharded over the cards (over [cuda:0, cuda:0]
+             each rank's peak allocated memory in a step and its device idle share
+ 15. shard   the [main] pipeline sharded over the cards (over [cuda:0, cuda:0]
              on one card): batch 8 at 50 steps bitwise the unsharded call with
              cuDNN off, the difference with it on; make_server over the mesh
              answers 8 concurrent requests with tiers multiples of the data size
- 15. encoder-train  the full-width AudioEncoder at batch 16 with train=True,
+ 16. encoder-train  the full-width AudioEncoder at batch 16 with train=True,
              forward and backward: the running statistics move, encode is
              untouched by .train()
- 16. native  (group interop; run after [golden]) the [main] pipeline saved in the diffusers layout,
+ 17. native  (group interop; run after [golden]) the [main] pipeline saved in the diffusers layout,
              the JAX package's native layout (params.msgpack) and the
              diffusers layout with .safetensors weights; each reloaded
              (bf16, fused GroupNorm) answers a batch-8 request at 50 steps
              bitwise the original's, 64 GroupNorm+SiLU and 6 attention
              launches per denoise step; bytes and walls of each save and load
- 17. cond-train  (group interop; run last) the conditional recipe (scripts.cond_selectivity_evidence)
+ 18. cond-train  (group interop; run last) the conditional recipe (scripts.cond_selectivity_evidence)
              at full width with 24 VAE and 100 UNet steps: the loss falls,
              steps/s, peak memory, the selectivity, 44 GroupNorm+SiLU
              launches per UNet forward of its evaluation and no attention
@@ -161,7 +176,8 @@ requests; ``staged_launches``: the [staged] requests' staged replays;
 ``serve_launches``: the [serve] traffic; ``apps_launches``: the
 [apps] calls; ``cond_launches``: the
 [cond] requests; ``train_launches``: the [train] run's forwards and
-backwards; ``dp_launches``: each [dp] rank's forwards and backwards;
+backwards; ``remat_launches``: the [remat] runs with remat (latent-256 and
+conditional-latent-512); ``dp_launches``: each [dp] rank's forwards and backwards;
 ``shard_launches``: the [shard] calls and requests; ``bench_launches``: the
 [bench] phase's programs; ``interop_launches``:
 each [native] layout's request and the [cond-train] run), error and times, the card's
@@ -224,6 +240,11 @@ TRAIN_SLICES = 64  # synthetic 256x256 spectrogram slices
 TRAIN_MICRO, TRAIN_ACCUM, TRAIN_STEPS, TRAIN_RESUME_TO = 16, 2, 12, 16
 TRAIN_LR = 3e-4
 TRAIN_ATTN = 6  # SelfAttention2D calls per latent-256 UNet forward: 5 at N=4, 1 at N=1
+# [remat]: UNetConfig.remat against the same run without it, latent-256 through run_training and
+# conditional-latent-512 through make_train_step at the reference's flat batch 16
+REMAT_STEPS, REMAT_REQUEST = 4, (8, 401)  # steps per run; the saved pipeline's (batch, generator seed)
+REMAT_COND_BATCH, REMAT_COND_STEPS = 16, 3
+REMAT_GRAD_NORM_RTOL = 1e-3
 PIXEL_BATCH, PIXEL_STEPS = 4, 3
 VAE_TRAIN_BATCH, VAE_TRAIN_STEPS, VAE_DISC_START = 4, 4, 2
 # The convenience layer on the latent-256 pipeline: 2 s overlaps (the stitch functions' default)
@@ -2301,7 +2322,6 @@ def phase_train(card: str, root: Path) -> dict:
         c.launches = 0
     at.FlashMHA.backwards = 0
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     results = []
     with _LogLines() as log:
         for max_steps in (TRAIN_STEPS, TRAIN_RESUME_TO):
@@ -2309,7 +2329,7 @@ def phase_train(card: str, root: Path) -> dict:
             results.append(run_training(run(max_steps), train))
             torch.cuda.synchronize()
             results[-1]["wall"] = time.perf_counter() - t0
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    peak_gib = step_peak_gib(results)
     launches = {"flash_mha": at.flash_mha.launches, "FlashMHA.backward": at.FlashMHA.backwards,
                 "group_norm_silu": gn.group_norm_silu.launches}
     first, second = results
@@ -2349,8 +2369,304 @@ def phase_train(card: str, root: Path) -> dict:
           f"{1e3 / step_ms:.4f} steps/s = {1e3 / step_ms * TRAIN_MICRO * TRAIN_ACCUM:.4f} samples/s; data wait "
           f"{np.mean(tm['data_wait_ms']):.4f} ms, forward+backward {np.mean(tm['fwd_bwd_ms']):.4f} ms, optimizer+EMA "
           f"{np.mean(tm['optimizer_ema_ms']):.4f} ms (CUDA events); run walls {first['wall']:.2f} s and "
-          f"{second['wall']:.2f} s; max_memory_allocated {peak_gib:.4f} GiB  [{card}]")
+          f"{second['wall']:.2f} s; peak allocated in a step {peak_gib:.4f} GiB  [{card}]")
     return launches
+
+
+def step_peak_gib(results) -> float:
+    """The largest of the steps' own peaks (``timings``) over ``run_training`` results, in GiB."""
+    return max(b for r in results for b in r["timings"]["peak_allocated_bytes"]) / 2**30
+
+
+def saved_for_backward_gib(cfg, batch: int, context_len: int = 1) -> dict:
+    """What autograd keeps between one training forward of ``cfg`` at ``batch``
+    rows and its backward, counted from shapes on the meta device (no memory,
+    no compute; runs without a card): the parameters' f32 GiB, the bytes the
+    backward reads (``saved``: the tensors saved outside any checkpoint plus,
+    with remat, the checkpoints' inputs) and, with remat, the largest block's
+    own saved bytes (``recompute``: held while its backward runs). The card's
+    attention keeps what a flash kernel keeps: q, k, v, o and an f32
+    logsumexp for SDPA, q, k and v for FlashMHA."""
+    import unittest.mock
+
+    import torch
+
+    from audio_diffusion_torch.models import UNet2D, unet2d
+
+    class Flash(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v):  # (B, N, heads, d), as dot_product_attention takes them
+            o = torch.empty_like(q)
+            ctx.save_for_backward(q, k, v, o, q.new_empty(q.shape[:3], dtype=torch.float32))
+            return o
+
+    class FlashMHA(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v):
+            ctx.save_for_backward(q, k, v)
+            return torch.empty_like(q)
+
+    def counter():
+        seen, total = set(), [0]
+
+        def pack(t):
+            base = t if t._base is None else t._base
+            if not isinstance(t, torch.nn.Parameter) and id(base) not in seen:
+                seen.add(id(base))
+                total[0] += base.numel() * base.element_size()
+            return t
+
+        return total, torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t)
+
+    inputs, blocks = {}, []
+
+    def counted_checkpoint(fn, *args, **kw):
+        inputs.update({id(a): a for a in args if isinstance(a, torch.Tensor)})  # held, so no id is reused
+        total, hooks = counter()
+        with hooks:
+            out = fn(*args)
+        blocks.append(total[0])
+        return out
+
+    with torch.device("meta"):
+        unet = UNet2D(cfg).train()
+    h, w = cfg.sample_hw()
+    x = torch.empty((batch, h, w, cfg.in_channels), device="meta")
+    ctx = torch.empty((batch, context_len, cfg.cross_attention_dim), device="meta") if cfg.is_conditional else None
+    total, hooks = counter()
+    with unittest.mock.patch.object(unet2d, "dot_product_attention", Flash.apply), \
+            unittest.mock.patch.object(unet2d, "multi_head_attention", FlashMHA.apply), \
+            unittest.mock.patch.object(unet2d, "checkpoint", counted_checkpoint), hooks:
+        ((unet(x, torch.tensor(500, device="meta"), ctx) - x) ** 2).mean()
+    return {"params_gib": sum(p.numel() for p in unet.parameters()) * 4 / 2**30,
+            "saved_gib": (total[0] + sum(a.numel() * a.element_size() for a in inputs.values())) / 2**30,
+            "recompute_gib": max(blocks, default=0) / 2**30}
+
+
+def _logged_steps(lines: list) -> list:
+    """The metrics dicts of the training logger's "epoch E step S: {...}" lines, in order."""
+    import ast
+
+    return [ast.literal_eval(line.split(": ", 1)[1]) for line in lines
+            if line.startswith("epoch ") and " step " in line.split(":", 1)[0]]
+
+
+def phase_remat(card: str, root: Path) -> dict:
+    """UNetConfig.remat on the card (module docstring, phase 11), beside the
+    same runs without it. (a) [train]'s pipeline with ``"remat": true`` in its
+    unet/config.json through ``run_training(from_pretrained=...)``. (b) The
+    conditional-latent-512 UNet at flat batch 16 through make_train_step.
+    Returns each kernel's launches in the remat runs."""
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from audio_diffusion_torch.models import UNet2D
+    from audio_diffusion_torch.ops import attention as at
+    from audio_diffusion_torch.ops import fused_groupnorm as gn
+    from audio_diffusion_torch.pipelines import AudioDiffusionPipeline
+    from audio_diffusion_torch.schedulers import DDPMScheduler
+    from audio_diffusion_torch.training import RunConfig, TrainConfig, run_training
+    from audio_diffusion_torch.training.train_unet import init_train_state, make_loss_fn, make_train_step
+
+    t_phase = time.perf_counter()
+
+    def reset():
+        gn.group_norm_silu.launches = at.flash_mha.launches = at.FlashMHA.backwards = 0
+
+    def counts():
+        return {"flash_mha": at.flash_mha.launches, "FlashMHA.backward": at.FlashMHA.backwards,
+                "group_norm_silu": gn.group_norm_silu.launches}
+
+    # (a) latent-256: the flag reaches training only through the pipeline's config, as in the JAX trainer
+    seed_dirs = {False: root / "model", True: root / "model_remat"}
+    shutil.copytree(seed_dirs[False], seed_dirs[True], ignore=shutil.ignore_patterns("checkpoints", "logs"))
+    config_path = seed_dirs[True] / "unet" / "config.json"
+    config_path.write_text(json.dumps({**json.loads(config_path.read_text()), "remat": True}))
+    train = TrainConfig(learning_rate=TRAIN_LR, lr_warmup_steps=0, gradient_accumulation_steps=TRAIN_ACCUM)
+    runs = {}
+    for remat in (False, True):
+        reset()
+        t0 = time.perf_counter()
+        with _LogLines() as log:
+            result = run_training(RunConfig(
+                dataset=str(root / "slices"), output_dir=str(root / f"remat_out_{remat}"),
+                train_batch_size=TRAIN_MICRO, from_pretrained=str(seed_dirs[remat]), mixed_precision="bf16",
+                max_steps=REMAT_STEPS, save_images_epochs=1000, log_every=1, device="cuda", timing=True), train)
+            torch.cuda.synchronize()
+        logged = _logged_steps(log.lines)
+        runs[remat] = {"losses": result["losses"], "grad_norms": [m["grad_norm"] for m in logged],
+                       "launches": counts(), "peak_gib": step_peak_gib([result]), "wall": time.perf_counter() - t0,
+                       "step_ms": result["timings"]["step_ms"], "fwd_bwd_ms": result["timings"]["fwd_bwd_ms"]}
+        if result["steps"] != REMAT_STEPS or len(logged) != REMAT_STEPS:
+            fail(f"[remat] latent-256 remat={remat}: {result['steps']} steps, {len(logged)} logged")
+    plain, rm = runs[False], runs[True]
+    per_step = TRAIN_ATTN * TRAIN_ACCUM
+    for remat, forwards in ((False, per_step), (True, 2 * per_step)):  # remat: the forward and the recompute
+        want = {"flash_mha": forwards * REMAT_STEPS, "FlashMHA.backward": per_step * REMAT_STEPS,
+                "group_norm_silu": 0}
+        if runs[remat]["launches"] != want:
+            fail(f"[remat] latent-256 remat={remat}: launches {runs[remat]['launches']} over {REMAT_STEPS} steps, "
+                 f"expected {want}")
+    if rm["losses"][0] != plain["losses"][0]:
+        fail(f"[remat] latent-256 step 1's loss {rm['losses'][0]!r} differs from the full-memory run's "
+             f"{plain['losses'][0]!r}")
+    rel = abs(rm["grad_norms"][0] - plain["grad_norms"][0]) / abs(plain["grad_norms"][0])
+    if not rel <= REMAT_GRAD_NORM_RTOL:
+        fail(f"[remat] latent-256 step 1's grad_norm {rm['grad_norms'][0]} against {plain['grad_norms'][0]}: "
+             f"{rel:.3g} relative (bound {REMAT_GRAD_NORM_RTOL:g})")
+    if not np.isfinite(rm["losses"]).all():
+        fail(f"[remat] latent-256 non-finite losses {rm['losses']}")
+
+    # the remat run's saved pipeline keeps the flag and answers as a remat=False copy of its weights
+    pipe = AudioDiffusionPipeline.from_pretrained(str(root / "remat_out_True"), dtype="bfloat16",
+                                                  fused_groupnorm=True, device="cuda")
+    if not pipe.unet.config.remat:
+        fail("[remat] the pipeline the remat run saved lost remat in its unet/config.json")
+    plain_unet = UNet2D(dataclasses.replace(pipe.unet.config, remat=False))
+    plain_unet.load_state_dict(pipe.unet.state_dict(), strict=True)
+    plain_pipe = AudioDiffusionPipeline(plain_unet, pipe.mel, pipe.scheduler, pipe.vqvae, device="cuda")
+    answers = []
+    for p in (pipe, plain_pipe):
+        reset()
+        raw, audio = p(batch_size=REMAT_REQUEST[0], steps=STEPS, return_arrays=True,
+                       generator=torch.Generator(device="cuda").manual_seed(REMAT_REQUEST[1]))
+        torch.cuda.synchronize()
+        answers.append((raw, audio, [gn.group_norm_silu.launches, at.flash_mha.launches],
+                        sum(prog.pool_bytes for prog in p._compiled.values())))
+    want = [2 * 64 * STEPS, 2 * TRAIN_ATTN * STEPS]  # a first call: the eager warm-up, then the graph's replay
+    if not (torch.equal(answers[0][0], answers[1][0]) and torch.equal(answers[0][1], answers[1][1])
+            and answers[0][2] == answers[1][2] == want and answers[0][3] == answers[1][3]):
+        fail(f"[remat] the saved remat pipeline's batch-{REMAT_REQUEST[0]} request against its remat=False copy: "
+             f"spectrograms equal {torch.equal(answers[0][0], answers[1][0])}, audio equal "
+             f"{torch.equal(answers[0][1], answers[1][1])}, launches (group_norm_silu, flash_mha) "
+             f"{answers[0][2]} and {answers[1][2]}, expected {want}; graph pools {answers[0][3]} and "
+             f"{answers[1][3]} bytes")
+    pool_bytes = answers[0][3]
+    config, state_dict = pipe.unet.config, pipe.unet.state_dict()
+    del pipe, plain_pipe, plain_unet, answers
+
+    # One microbatch's forward and backward with and without remat, under deterministic algorithms: the
+    # gradients, and the memory the pair adds (the activations remat drops, the gradients). A whole step's peak
+    # can be the optimizer's instead: its temporaries reach 4x the parameters, which at latent-256 outweighs
+    # the activations of a microbatch of 16.
+    g = torch.Generator(device="cuda").manual_seed(7)
+    moments = torch.cat([torch.randn((TRAIN_MICRO, 32, 32, 1), generator=g, device="cuda"),
+                         torch.full((TRAIN_MICRO, 32, 32, 1), -2.0, device="cuda")], dim=-1)
+    t = torch.randint(0, 1000, (TRAIN_MICRO,), generator=g, device="cuda")
+    noise, eps = (torch.randn((TRAIN_MICRO, 32, 32, 1), generator=g, device="cuda") for _ in range(2))
+    grads = {}
+    saved = (torch.are_deterministic_algorithms_enabled(), os.environ.get("CUBLAS_WORKSPACE_CONFIG"))
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"  # cuBLAS's deterministic workspace, as torch asks
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for remat in (False, True):
+            unet = UNet2D(dataclasses.replace(config, fused_groupnorm=False, remat=remat))
+            unet.load_state_dict(state_dict, strict=True)
+            unet = unet.to("cuda").train()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            loss = make_loss_fn(train, unet, DDPMScheduler(), cached_latents=True)(moments, None, t, noise, eps)
+            loss.backward()
+            grads[remat] = (loss.detach(), {k: p.grad for k, p in unet.named_parameters()},
+                            (torch.cuda.max_memory_allocated() - base) / 2**30)
+            del unet, loss
+    finally:
+        torch.use_deterministic_algorithms(saved[0])
+        if saved[1] is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = saved[1]
+    grad_diff = max(float((grads[True][1][k].float() - v.float()).abs().max()) for k, v in grads[False][1].items())
+    loss_equal = torch.equal(grads[True][0], grads[False][0])
+    added = {remat: v[2] for remat, v in grads.items()}
+    del grads
+    if not added[True] < added[False]:
+        fail(f"[remat] latent-256: one microbatch's forward and backward added {added[True]:.4f} GiB with remat, "
+             f"{added[False]:.4f} without")
+
+    print(f"[remat] latent-256 through run_training(from_pretrained=<[train]'s pipeline with \"remat\": true in "
+          f"unet/config.json>), micro {TRAIN_MICRO} x accum {TRAIN_ACCUM}, bf16, cached latents, {REMAT_STEPS} "
+          f"steps, against the same run from the unchanged pipeline: step 1 loss {rm['losses'][0]!r} bitwise the "
+          f"full-memory run's; step 1 grad_norm {rm['grad_norms'][0]!r} against {plain['grad_norms'][0]!r} ({rel:.3g} "
+          f"relative); launches per step flash_mha {rm['launches']['flash_mha'] // REMAT_STEPS} (2 x {TRAIN_ATTN} x "
+          f"{TRAIN_ACCUM}) against {plain['launches']['flash_mha'] // REMAT_STEPS}, FlashMHA.backward "
+          f"{rm['launches']['FlashMHA.backward'] // REMAT_STEPS} against "
+          f"{plain['launches']['FlashMHA.backward'] // REMAT_STEPS}, group_norm_silu 0  [{card}]")
+    for name, r in (("remat", rm), ("full memory", plain)):
+        print(f"[remat] latent-256 {name}: losses {np.round(r['losses'], 4).tolist()}; peak allocated in a step "
+              f"{r['peak_gib']:.4f} GiB; host wall per step (steps 2-{REMAT_STEPS}) "
+              f"{np.mean(r['step_ms'][1:]):.4f} ms, forward+backward {np.mean(r['fwd_bwd_ms'][1:]):.4f} ms (CUDA "
+              f"events); run wall {r['wall']:.2f} s  [{card}]")
+    print(f"[remat] the remat run's saved pipeline (remat kept in its config) answered a batch-{REMAT_REQUEST[0]} "
+          f"request at {STEPS} steps bitwise as a remat=False copy of its weights, launches (group_norm_silu, "
+          f"flash_mha) {want} each (warm-up and replay), graph pool {pool_bytes} bytes each  [{card}]")
+    shapes = {remat: saved_for_backward_gib(dataclasses.replace(config, fused_groupnorm=False, remat=remat),
+                                            TRAIN_MICRO) for remat in (False, True)}
+    print(f"[remat] latent-256, one microbatch of {TRAIN_MICRO} (forward and backward, deterministic algorithms): "
+          f"loss bitwise {loss_equal}, largest gradient difference {grad_diff!r}; peak allocated above what was "
+          f"allocated before it {added[True]:.4f} GiB with remat, {added[False]:.4f} GiB without (activations and "
+          f"the f32 gradients); counted from shapes: kept for the backward {shapes[True]['saved_gib']:.4f} GiB "
+          f"(+ {shapes[True]['recompute_gib']:.4f} while the largest block recomputes) against "
+          f"{shapes[False]['saved_gib']:.4f}, f32 parameters {shapes[False]['params_gib']:.4f} GiB  [{card}]")
+
+    # (b) conditional-latent-512 at the reference's flat batch 16 (GroupNorm kernel off: it has no backward)
+    cfg = dataclasses.replace(cond_config(), fused_groupnorm=False)
+    h, w = cfg.sample_hw()
+    g = torch.Generator().manual_seed(41)
+    latents = torch.randn((1, REMAT_COND_BATCH, h, w, cfg.in_channels), generator=g).to("cuda")
+    encodings = torch.randn((1, REMAT_COND_BATCH, 1, cfg.cross_attention_dim), generator=g).to("cuda")
+    init = UNet2D(cfg).init_params(torch.Generator().manual_seed(40)).state_dict()
+    cond_train = TrainConfig(learning_rate=TRAIN_LR, lr_warmup_steps=0)
+    cond = {}
+    for remat in (False, True):
+        unet = UNet2D(dataclasses.replace(cfg, remat=remat))
+        unet.load_state_dict(init, strict=True)
+        unet = unet.to("cuda").train()
+        state = init_train_state(cond_train, unet)
+        step = make_train_step(cond_train, unet, DDPMScheduler(), conditional=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        losses, events = [], []
+        for _ in range(REMAT_COND_STEPS):
+            e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            e[0].record()
+            _, m = step(state, latents, encodings, seed=5)
+            e[1].record()
+            losses.append(m["loss"])
+            events.append(e)
+        torch.cuda.synchronize()
+        cond[remat] = {"losses": [float(x) for x in losses], "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                       "ms": [a.elapsed_time(b) for a, b in events], "launches": counts()}
+        del unet, state, step, losses, m
+        torch.cuda.empty_cache()
+    for remat, r in cond.items():
+        shape = saved_for_backward_gib(dataclasses.replace(cfg, remat=remat), REMAT_COND_BATCH)
+        print(f"[remat] conditional-latent-512 {'remat' if remat else 'full memory'}: counted from shapes, kept for "
+              f"the backward {shape['saved_gib']:.4f} GiB (+ {shape['recompute_gib']:.4f} while the largest block "
+              f"recomputes), f32 parameters {shape['params_gib']:.4f} GiB; measured: flat batch "
+              f"{REMAT_COND_BATCH}, {h}x{w} latents, cross_attention_dim {cfg.cross_attention_dim}, bf16, "
+              f"{REMAT_COND_STEPS} steps through make_train_step: losses {r['losses']!r}; peak allocated "
+              f"{r['peak_gib']:.4f} GiB; ms per step (CUDA events) {[round(x, 4) for x in r['ms']]}, steps "
+              f"2-{REMAT_COND_STEPS} {np.mean(r['ms'][1:]):.4f}; launches {r['launches']} (Transformer2D runs "
+              f"SDPA, GroupNorm is torch's)  [{card}]")
+    if cond[True]["losses"][0] != cond[False]["losses"][0] or not cond[True]["peak_gib"] < cond[False]["peak_gib"]:
+        fail(f"[remat] conditional-latent-512: step 1 loss {cond[True]['losses'][0]!r} against "
+             f"{cond[False]['losses'][0]!r}, peak {cond[True]['peak_gib']:.4f} against {cond[False]['peak_gib']:.4f} "
+             "GiB without remat")
+    zero = {"flash_mha": 0, "FlashMHA.backward": 0, "group_norm_silu": 0}
+    if any(r["launches"] != zero for r in cond.values()):
+        fail(f"[remat] conditional-latent-512 launched this repo's kernels: {[r['launches'] for r in cond.values()]}")
+    print(f"[remat] ok in {time.perf_counter() - t_phase:.1f} s: with remat, a latent-256 microbatch's forward and "
+          f"backward add {added[True]:.4f} against {added[False]:.4f} GiB (the step peak {rm['peak_gib']:.4f} against "
+          f"{plain['peak_gib']:.4f}), the conditional-latent-512 b{REMAT_COND_BATCH} step peak is "
+          f"{cond[True]['peak_gib']:.4f} against {cond[False]['peak_gib']:.4f} GiB; step 1's loss bitwise in both  "
+          f"[{card}]")
+    return {"latent256": rm["launches"], "cond512": cond[True]["launches"]}
 
 
 def phase_train_profile(card: str):
@@ -2892,7 +3208,6 @@ def dp_rank(rank: int, world: int, init: str, device: str, backend: str, shardin
             train = TrainConfig(learning_rate=TRAIN_LR, lr_warmup_steps=0, gradient_accumulation_steps=TRAIN_ACCUM,
                                 param_sharding=sharding)
             at.flash_mha.launches = at.FlashMHA.backwards = gn.group_norm_silu.launches = 0
-            torch.cuda.reset_peak_memory_stats()
             results = [run_training(RunConfig(
                 dataset=str(root / "slices"), output_dir=str(root / f"model_{tag}_{sharding}"),
                 train_batch_size=TRAIN_MICRO, vae=str(root / "vae"), mixed_precision="bf16", max_steps=max_steps,
@@ -2926,7 +3241,7 @@ def dp_rank(rank: int, world: int, init: str, device: str, backend: str, shardin
             out["configs"][sharding] = {
                 "losses": results[0]["losses"] + results[1]["losses"],
                 "steps": [r["steps"] for r in results], "saves": sum(r["saves"] for r in results),
-                "launches": launches, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "launches": launches, "peak_gib": step_peak_gib(results),
                 "step_ms": float(np.mean(tm["step_ms"])), "fwd_bwd_ms": float(np.mean(tm["fwd_bwd_ms"])),
                 "optimizer_ema_ms": float(np.mean(tm["optimizer_ema_ms"])), "idle_pct": 100 - 100 * busy / wall_us}
             torch.cuda.empty_cache()
@@ -2979,7 +3294,7 @@ def _dp_launch(root: Path, tag: str, world: int, backend: str, devices: list, sh
 
 def phase_dp(card: str, root: Path) -> dict:
     """Latent-256 UNet training at full width, data parallel: one process per
-    rank through ``run_training`` (module docstring, phase 13). Returns each
+    rank through ``run_training`` (module docstring, phase 14). Returns each
     rank's kernel launches."""
     import shutil
 
@@ -3045,14 +3360,14 @@ def phase_dp(card: str, root: Path) -> dict:
                   f"{first['step_ms']:.4f} ms/step = {1e3 / first['step_ms']:.4f} steps/s = "
                   f"{1e3 / first['step_ms'] * samples:.4f} samples/s (global micro {TRAIN_MICRO} x accum "
                   f"{TRAIN_ACCUM}), forward+backward {first['fwd_bwd_ms']:.4f} ms, optimizer+EMA "
-                  f"{first['optimizer_ema_ms']:.4f} ms (CUDA events); peak memory per rank "
+                  f"{first['optimizer_ema_ms']:.4f} ms (CUDA events); peak allocated in a step per rank "
                   f"{[round(r['peak_gib'], 4) for r in runs]} GiB; device idle per rank (2 profiled steps) "
                   f"{[round(r['idle_pct'], 2) for r in runs]}%  [{card}]")
         for sharding in shardings:
             shutil.rmtree(root / f"model_{tag}_{sharding}", ignore_errors=True)
     fsdp = {k: v for k, v in peaks.items() if k.endswith("/fsdp")}
-    print(f"[dp] peak memory per rank, FSDP beside DDP: " + "; ".join(f"{k} {[round(x, 4) for x in v]} GiB"
-                                                                      for k, v in peaks.items())
+    print("[dp] peak allocated in a step per rank, FSDP beside DDP: "
+          + "; ".join(f"{k} {[round(x, 4) for x in v]} GiB" for k, v in peaks.items())
           + f" (FSDP runs: {sorted(fsdp)})  [{card}]")
     return launches
 
@@ -3369,8 +3684,8 @@ def main(argv=None) -> int:
                          "main, layers, profile, fused, staged, fidelity, serve, serve f32, tier, bench; apps: apps, "
                          "prepare, "
                          "golden; cond; train: "
-                         "attn-grad, train, train-pixel, train-vae; dp: dp, shard, encoder-train; interop: native, "
-                         "cond-train); a partial run prints no result lines")
+                         "attn-grad, train, remat, train-pixel, train-vae; dp: dp, shard, encoder-train; interop: "
+                         "native, cond-train); a partial run prints no result lines")
     # one rank of [dp]: the script re-runs itself with these
     for name in ("rank", "world", "init", "device", "backend", "shardings", "root", "tag"):
         ap.add_argument(f"--dp-{name}", default=None, help=argparse.SUPPRESS)
@@ -3477,6 +3792,7 @@ def main(argv=None) -> int:
         grad_t = phase_attention_grad(card)
         with tempfile.TemporaryDirectory() as d:
             train_launches = phase_train(card, Path(d))
+            remat_launches = phase_remat(card, Path(d))
             phase_train_profile(card)
             phase_train_pixel(card)
             phase_train_vae(card, Path(d) / "slices")
@@ -3508,6 +3824,8 @@ def main(argv=None) -> int:
               "serve_launches": serve_launches["group_norm_silu"], "apps_launches": apps_launches["group_norm_silu"],
               "cond_launches": cond_launches["group_norm_silu"], "cond_launches_per_request": COND_NORMS * STEPS,
               "train_launches": {"forward": train_launches["group_norm_silu"], "backward": 0},
+              "remat_launches": {run: {"forward": v["group_norm_silu"], "backward": 0}
+                                 for run, v in remat_launches.items()},
               "dp_launches": {run: {"forward": v["group_norm_silu"], "backward": 0} for run, v in dp_launches.items()},
               "shard_launches": shard_launches["group_norm_silu"],
               "interop_launches": {"native": {k: v["group_norm_silu"] for k, v in native_launches.items()},
@@ -3522,6 +3840,8 @@ def main(argv=None) -> int:
               "apps_launches": apps_launches["flash_mha"], "cond_launches": cond_launches["flash_mha"],
               "train_launches": {"forward": train_launches["flash_mha"],
                                  "backward": train_launches["FlashMHA.backward"]},
+              "remat_launches": {run: {"forward": v["flash_mha"], "backward": v["FlashMHA.backward"]}
+                                 for run, v in remat_launches.items()},
               "dp_launches": {run: {"forward": v["flash_mha"], "backward": v["FlashMHA.backward"]}
                               for run, v in dp_launches.items()},
               "shard_launches": shard_launches["flash_mha"],
@@ -3542,6 +3862,8 @@ def main(argv=None) -> int:
                  f"{k['bench_launches']}")
     if not (train_launches["flash_mha"] > 0 and train_launches["FlashMHA.backward"] > 0):
         fail("flash_mha and its backward were not launched on the training path")
+    if not (remat_launches["latent256"]["flash_mha"] > 0 and remat_launches["latent256"]["FlashMHA.backward"] > 0):
+        fail(f"flash_mha and its backward were not launched on the remat training path: {remat_launches}")
     if not all(v["flash_mha"] > 0 and v["FlashMHA.backward"] > 0 for v in dp_launches.values()):
         fail(f"flash_mha and its backward were not launched on every data-parallel rank: {dp_launches}")
     if not all(v > 0 for v in shard_launches.values()):

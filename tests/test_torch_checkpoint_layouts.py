@@ -14,6 +14,9 @@
   1 apart on at most 0.5% of pixels), with the noise injected.
 - ``convert_checkpoint --to native`` / ``--to torch`` round trips; empty and
   truncated ``params.msgpack`` files raise the named ``ValueError``.
+- A JAX ``remat=True`` pipeline keeps ``remat`` through the port's
+  ``from_pretrained``, ``save_pretrained`` in both layouts and
+  ``convert_checkpoint --to native``.
 
 ``msgpack``, ``flax`` and ``safetensors`` are used here only to write the
 reference files; the port imports none of them."""
@@ -37,7 +40,7 @@ from audio_diffusion_torch.models import VAEConfig as TorchVAEConfig
 from audio_diffusion_torch.models.audio_encoder import AudioEncoder as TorchAudioEncoder
 from audio_diffusion_torch.pipelines.pipeline import AudioDiffusionPipeline as TorchPipeline
 from audio_diffusion_torch.scripts import convert_checkpoint
-from audio_diffusion_torch.utils import convert, flax_msgpack, safetensors_io
+from audio_diffusion_torch.utils import convert, diffusers_io, flax_msgpack, safetensors_io
 from audio_diffusion_tpu.models import UNet2D, UNetConfig
 from audio_diffusion_tpu.models.vae import AutoencoderKL, VAEConfig
 from audio_diffusion_tpu.pipelines.pipeline import AudioDiffusionPipeline
@@ -270,3 +273,24 @@ def test_convert_checkpoint_round_trips(kw, tmp_path, fast_flax_templates):
         **dict(kw, fused_groupnorm=False))
     want = convert.unet_params_from_state_dict(tpipe.unet.state_dict(), tpipe.unet.config)
     _leaves_equal(jax.tree.map(np.asarray, loaded_j.unet_params), want)
+
+
+def test_remat_survives_both_layouts_and_the_converter(tmp_path):
+    """``remat`` is set only through a config: a JAX pipeline saved with
+    ``remat=True`` loads into the port with it, and every directory the port
+    writes from there (diffusers and native layouts, ``convert_checkpoint --to
+    native`` of the diffusers one) gives it back to the JAX package's
+    ``UNetConfig.from_pretrained`` and to the port."""
+    jpipe, _ = _pair(dict(UNET_KW, remat=True))
+    jpipe.save_pretrained(str(tmp_path / "jax"))
+    loaded = TorchPipeline.from_pretrained(str(tmp_path / "jax"), device="cpu")
+    assert loaded.unet.config.remat
+    loaded.save_pretrained(str(tmp_path / "diffusers"))
+    loaded.save_pretrained(str(tmp_path / "native"), layout="native")
+    convert_checkpoint.main(["--input", str(tmp_path / "diffusers"), "--output", str(tmp_path / "converted"),
+                             "--to", "native"])
+    for d in ("diffusers", "native", "converted"):
+        assert UNetConfig.from_pretrained(str(tmp_path / d / "unet")).remat is True, d
+        assert diffusers_io.read_unet(str(tmp_path / d / "unet"))[0].remat is True, d
+    # a remat=False UNet's diffusers config stays as the JAX package's torch_export writes it
+    assert "remat" not in diffusers_io.unet_config_to_diffusers(dataclasses.replace(loaded.unet.config, remat=False))

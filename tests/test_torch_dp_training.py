@@ -11,6 +11,9 @@ workers never race for a port; every child has a timeout, so a hang fails.
   within 1e-4 of each tensor's largest; both ranks' loss bitwise equal.
 * The seeded-generator step on 2 ranks against the port's one-device step
   with the same seed: loss rtol 1e-5, parameters atol 1e-5.
+* The DDP and FSDP steps with ``remat`` (each block run again in the
+  backward, inside FSDP2's units) against the same steps without it:
+  bitwise, and no FSDP parameter left unsharded after the step.
 
 The CLI in 2 processes and ``push_to_hub`` are in test_torch_dp_cli.py, on
 this file's launcher.
@@ -48,6 +51,8 @@ SEED = 3
 CASES = [dict(name=f"{sharding}-{accum}", sharding=sharding, accum=accum, injected=True)
          for sharding in ("replicated", "fsdp") for accum in (1, 2)]
 CASES += [dict(name=f"{sharding}-generator", sharding=sharding, accum=2, injected=False)
+          for sharding in ("replicated", "fsdp")]
+CASES += [dict(name=f"{sharding}-remat", sharding=sharding, accum=2, injected=True, remat=True)
           for sharding in ("replicated", "fsdp")]
 
 
@@ -147,7 +152,7 @@ def _port_params(out):
     return {k[2:]: v for k, v in out.items() if k.startswith("p.")}
 
 
-@pytest.mark.parametrize("case", [c["name"] for c in CASES if c["injected"]])
+@pytest.mark.parametrize("case", [c["name"] for c in CASES if c["injected"] and not c.get("remat")])
 def test_dp_step_matches_the_jax_mesh_step(runs, case):
     sharding, accum = case.split("-")
     accum = int(accum)
@@ -182,3 +187,15 @@ def test_dp_generator_step_is_the_one_device_step(runs, sharding):
         np.testing.assert_allclose(v, state.params[k].detach().numpy(), rtol=0, atol=1e-5, err_msg=k)
     _assert_gradients_close({k[3:]: v for k, v in rank0.items() if k.startswith("mu.")},
                             {k: v.numpy() for k, v in state.opt_state.mu.items()})
+
+
+@pytest.mark.parametrize("sharding", ["replicated", "fsdp"])
+def test_dp_remat_step_is_the_full_memory_step(runs, sharding):
+    """Under FSDP2 the recompute calls each sharded resnet again inside the
+    backward: its parameters must be gathered once more, reduced once and
+    sharded again, so loss, grad_norm, parameters and Adam's first moment
+    equal the step without remat bitwise, and no parameter stays unsharded."""
+    for got, want in zip(runs["steps"][f"{sharding}-remat"], runs["steps"][f"{sharding}-2"]):
+        assert got.keys() == want.keys() and int(got["unsharded"]) == int(want["unsharded"]) == 0
+        for k in got:
+            assert np.array_equal(got[k], want[k]), k

@@ -135,10 +135,14 @@ def test_bf16_compute_keeps_f32_params(unet_pair):
     assert (y16 - y32).abs().max() < 0.1 * y32.abs().max()
 
 
-def test_configs_interchangeable_with_jax(tmp_path):
-    """config.json written by either package loads in the other."""
-    UNetConfig(**UNET_KW).save_config(str(tmp_path / "jax"))
-    assert TorchUNetConfig.from_pretrained(str(tmp_path / "jax")) == TorchUNetConfig(**UNET_KW)
+@pytest.mark.parametrize("remat", [False, True])
+def test_configs_interchangeable_with_jax(tmp_path, remat):
+    """config.json written by either package loads in the other, ``remat`` included."""
+    kw = dict(UNET_KW, remat=remat)
+    UNetConfig(**kw).save_config(str(tmp_path / "jax"))
+    assert TorchUNetConfig.from_pretrained(str(tmp_path / "jax")) == TorchUNetConfig(**kw)
+    TorchUNetConfig(**kw).save_config(str(tmp_path / "torch_unet"))
+    assert UNetConfig.from_pretrained(str(tmp_path / "torch_unet")) == UNetConfig(**kw)
     TorchVAEConfig(**VAE_KW).save_config(str(tmp_path / "torch"))
     assert VAEConfig.from_pretrained(str(tmp_path / "torch")) == VAEConfig(**VAE_KW)
 

@@ -1,9 +1,10 @@
 """Port parity of UNet training: the attention kernel's VJP (``FlashMHA``),
 the lr schedules, clip + AdamW, EMA, the velocity target, one microbatch's
 loss and gradients and the full accumulated step against the JAX package, on
-the CPU at tiny widths. The JAX draws are made here and injected. The data
-stream, checkpoints, ``run_training`` and the CLI are in
-test_torch_training_loop.py."""
+the CPU at tiny widths, also with ``remat`` on both sides; the port's
+``remat`` against its own full-memory step. The JAX draws are made here
+and injected. The data stream, checkpoints, ``run_training`` and the CLI
+are in test_torch_training_loop.py."""
 
 
 import jax
@@ -16,12 +17,15 @@ import torch
 from test_torch_models import random_params
 from test_torch_pipeline import one_intra_op_thread  # noqa: F401 (autouse: one intra-op thread)
 
+from audio_diffusion_torch.mel import Mel as TorchMel
 from audio_diffusion_torch.models import UNet2D as TorchUNet
 from audio_diffusion_torch.models import UNetConfig as TorchUNetConfig
 from audio_diffusion_torch.models.ema import EMA as TorchEMA
 from audio_diffusion_torch.ops import attention as at
+from audio_diffusion_torch.pipelines.pipeline import AudioDiffusionPipeline as TorchPipeline
 from audio_diffusion_torch.schedulers import DDIMScheduler as TorchDDIM
 from audio_diffusion_torch.schedulers import DDPMScheduler as TorchDDPM
+from audio_diffusion_torch.schedulers import SchedulerConfig as TorchSchedulerConfig
 from audio_diffusion_torch.training import train_unet as tt
 from audio_diffusion_torch.utils.convert import to_torch, unet_state_dict
 from audio_diffusion_tpu.models import UNet2D, UNetConfig
@@ -157,7 +161,9 @@ def test_velocity_matches_jax(kind):
 # ------------------------------------------------------------- loss and step
 
 CASES = {"unconditional": (UNCOND_KW, "epsilon", False), "conditional": (COND_KW, "epsilon", False),
-         "cached_latents": (UNCOND_KW, "epsilon", True), "v_prediction": (UNCOND_KW, "v_prediction", False)}
+         "cached_latents": (UNCOND_KW, "epsilon", True), "v_prediction": (UNCOND_KW, "v_prediction", False),
+         "remat_unconditional": (dict(UNCOND_KW, remat=True), "epsilon", False),
+         "remat_conditional": (dict(COND_KW, remat=True), "epsilon", False)}
 
 
 def _jax_draws(key, micro, shape, t_max=1000):
@@ -213,6 +219,50 @@ def test_microbatch_loss_and_gradients_match_jax(case):
             assert np.abs(g.numpy()).max() <= noise and np.abs(want[k]).max() <= noise, k
         else:
             assert np.abs(g.numpy() - want[k]).max() <= 1e-4 * np.abs(want[k]).max(), k
+
+
+@pytest.mark.parametrize("kw", [UNCOND_KW, COND_KW], ids=["unconditional", "conditional"])
+def test_remat_changes_no_gradient_and_runs_each_block_again(kw):
+    """``remat=True`` against ``remat=False`` on the same weights: one train
+    step's gradients and updated parameters bitwise equal; each
+    ResnetBlock2D, SelfAttention2D and Transformer2D starts twice per
+    microbatch under grad (the forward and the backward's recompute) and
+    once under ``no_grad``; a tiny pipeline's images bitwise the same."""
+    _, _, _, port = _unet_pair(kw, seed=10)
+    conditional = "cross_attention_dim" in kw
+    rng = np.random.default_rng(11)
+    images = rng.uniform(-1, 1, (1, 3, 8, 8, 1)).astype(np.float32)
+    enc = rng.standard_normal((1, 3, 1, 12)).astype(np.float32) if conditional else None
+    draws = dict(timesteps=rng.integers(0, 1000, (1, 3)), noise=rng.standard_normal((1, 3, 8, 8, 1)))
+    cfg = tt.TrainConfig(learning_rate=1e-3, lr_warmup_steps=0)
+    out = {}
+    for remat in (False, True):
+        unet = TorchUNet(TorchUNetConfig(**dict(kw, remat=remat)))
+        unet.load_state_dict(port.state_dict(), strict=True)
+        starts = {}
+
+        def count(module, args):
+            starts[module] = starts.get(module, 0) + 1
+
+        for m in unet.modules():
+            if type(m).__name__ in ("ResnetBlock2D", "SelfAttention2D", "Transformer2D"):
+                m.register_forward_pre_hook(count)
+        state = tt.init_train_state(cfg, unet.train())
+        _, metrics = tt.make_train_step(cfg, unet, TorchDDPM(), conditional=conditional)(state, images, enc, **draws)
+        assert set(starts.values()) == {2 if remat else 1} and len(starts) == 12
+        starts.clear()
+        with torch.no_grad():
+            unet(torch.from_numpy(images[0]), torch.tensor(500), None if enc is None else torch.from_numpy(enc[0]))
+        assert set(starts.values()) == {1}
+        pipe = TorchPipeline(unet.eval(), TorchMel(x_res=8, y_res=8, device="cpu"),
+                             TorchDDIM(TorchSchedulerConfig(100)), device="cpu")
+        raw = pipe(batch_size=2, steps=2, generator=torch.Generator().manual_seed(12), return_images_only=True,
+                   encoding=None if enc is None else enc[0, :2, 0])
+        out[remat] = (metrics["loss"], {k: p.grad for k, p in unet.named_parameters()},
+                      {k: p.detach() for k, p in unet.named_parameters()}, raw)
+    (loss0, grads0, params0, raw0), (loss1, grads1, params1, raw1) = out[False], out[True]
+    assert torch.equal(loss0, loss1) and np.array_equal(raw0, raw1)
+    assert all(torch.equal(grads0[k], grads1[k]) and torch.equal(params0[k], params1[k]) for k in grads0)
 
 
 def test_train_step_with_accumulation_matches_jax():

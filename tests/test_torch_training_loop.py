@@ -1,10 +1,13 @@
 """Port parity of UNet training, continued from test_torch_training.py (its
 tiny configs and helpers): the data stream's epoch order against the JAX
-package, checkpoints, ``run_training`` with a bitwise resume and with
-encodings, and the training CLI, on the CPU."""
+package, checkpoints, ``run_training`` with a bitwise resume, with
+encodings and with ``remat`` from the pretrained config, and the training
+CLI, on the CPU."""
 
 import gc
+import json
 import os
+import shutil
 import subprocess
 import sys
 import weakref
@@ -13,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 from PIL import Image
+from torch.utils.checkpoint import checkpoint
 from test_torch_pipeline import one_intra_op_thread  # noqa: F401 (autouse: one intra-op thread)
 from test_torch_training import COND_KW, RES, UNCOND_KW, _unet_pair
 
@@ -20,6 +24,7 @@ from audio_diffusion_torch.data import dataset as tdata
 from audio_diffusion_torch.mel import Mel as TorchMel
 from audio_diffusion_torch.models import UNet2D as TorchUNet
 from audio_diffusion_torch.models import UNetConfig as TorchUNetConfig
+from audio_diffusion_torch.models import unet2d
 from audio_diffusion_torch.pipelines.pipeline import AudioDiffusionPipeline as TorchPipeline
 from audio_diffusion_torch.schedulers import DDIMScheduler as TorchDDIM
 from audio_diffusion_torch.schedulers import DDPMScheduler as TorchDDPM
@@ -129,10 +134,10 @@ def seed_pipeline(tmp_path_factory):
     return d
 
 
-def _run(dataset_dir, seed_pipeline, out, max_steps):
+def _run(dataset_dir, seed_pipeline, out, max_steps, **kw):
     run = RunConfig(dataset=dataset_dir, output_dir=out, num_epochs=3, train_batch_size=2, save_images_epochs=1000,
                     save_model_epochs=1, scheduler="ddim", num_train_steps=100, from_pretrained=seed_pipeline,
-                    max_steps=max_steps, log_every=1, device="cpu")
+                    max_steps=max_steps, log_every=1, device="cpu", **kw)
     return run_training(run, tt.TrainConfig(lr_warmup_steps=2, learning_rate=1e-3))
 
 
@@ -167,6 +172,69 @@ def test_run_training_resumes_bitwise_and_saves_a_loadable_pipeline(dataset_dir,
     assert pipe(batch_size=1, steps=2, return_images_only=True).shape == (1, RES, RES)
     jpipe = AudioDiffusionPipeline.from_pretrained(out)
     assert jpipe(batch_size=1, steps=2, return_images_only=True).shape == (1, RES, RES)
+
+
+@pytest.mark.parametrize("mixed_precision", ["no", "bf16"])
+def test_run_training_takes_remat_from_the_pretrained_config(dataset_dir, seed_pipeline, tmp_path, monkeypatch,
+                                                              mixed_precision):
+    """``remat`` is set through the pipeline's ``unet/config.json``, as the
+    JAX trainer reads it: the UNet then checkpoints its 12 blocks in every
+    forward (also after the bf16 rebuild), the losses are bitwise those of
+    the same run without it, and the saved pipeline keeps the flag for both
+    packages."""
+    from audio_diffusion_tpu.models import UNetConfig
+
+    remat_seed = tmp_path / "remat_seed"
+    shutil.copytree(seed_pipeline, remat_seed)
+    config = json.loads((remat_seed / "unet" / "config.json").read_text())
+    (remat_seed / "unet" / "config.json").write_text(json.dumps({**config, "remat": True}))
+    calls = []
+
+    def counted(fn, *args, **kw):
+        calls.append(fn)
+        return checkpoint(fn, *args, **kw)
+
+    monkeypatch.setattr(unet2d, "checkpoint", counted)
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        plain = _run(dataset_dir, seed_pipeline, str(tmp_path / "plain"), 2, mixed_precision=mixed_precision)
+        assert calls == []
+        remat = _run(dataset_dir, str(remat_seed), str(tmp_path / "remat"), 2, mixed_precision=mixed_precision)
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    assert len(calls) == 12 * 2 and remat["losses"] == plain["losses"]
+    saved = str(tmp_path / "remat" / "unet")
+    assert UNetConfig.from_pretrained(saved).remat and TorchPipeline.from_pretrained(
+        str(tmp_path / "remat"), device="cpu").unet.config.remat
+
+
+def test_run_training_frees_the_loaded_unet_it_rebuilds_in_bf16(dataset_dir, seed_pipeline, tmp_path, monkeypatch):
+    """With --mixed_precision bf16 the trainer rebuilds the UNet it loaded
+    from --from_pretrained; by the time the step is built, nothing holds the
+    loaded one (on the card its f32 copy would add to every step's memory)."""
+    from audio_diffusion_torch.training import loop
+
+    loaded, alive = [], []
+    from_pretrained, make_train_step = TorchPipeline.from_pretrained, loop.make_train_step
+
+    def load(*args, **kw):
+        pipe = from_pretrained(*args, **kw)
+        loaded.append(weakref.ref(pipe.unet))
+        return pipe
+
+    def make(*args, **kw):
+        alive.append(loaded[0]() is not None)
+        return make_train_step(*args, **kw)
+
+    monkeypatch.setattr(loop.AudioDiffusionPipeline, "from_pretrained", load)
+    monkeypatch.setattr(loop, "make_train_step", make)
+    gc.disable()
+    try:
+        _run(dataset_dir, seed_pipeline, str(tmp_path / "out"), 1, mixed_precision="bf16")
+    finally:
+        gc.enable()
+    assert alive == [False]
 
 
 def test_run_training_conditional_with_encodings(dataset_dir, tmp_path):

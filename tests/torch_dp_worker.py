@@ -7,9 +7,10 @@ MODE with the files in WORKDIR. Imports torch and the port only, never JAX.
 Not collected by pytest.
 
 * ``steps``: every case of ``steps.json`` (param_sharding, accum, injected
-  draws or the seeded generator) from the weights, images and draws of
-  ``steps_inputs.npz``; each case takes one optimizer step on this rank's
-  rows and writes its loss, grad_norm and (rank 0) the whole updated
+  draws or the seeded generator, ``remat``) from the weights, images and
+  draws of ``steps_inputs.npz``; each case takes one optimizer step on this
+  rank's rows and writes its loss, grad_norm, the number of the UNet's
+  parameters left unsharded after the step and (rank 0) the whole updated
   parameters and Adam first moments into ``steps_<case>_<rank>.npz``.
 * ``cli``: ``audio_diffusion_torch.training.__main__.main`` on the argv of
   ``cli.json``, inside the group; the result goes to ``cli_<rank>.json``.
@@ -28,6 +29,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def _steps(work: str, rank: int) -> None:
     import torch
+    from torch.distributed.tensor import DTensor
 
     from audio_diffusion_torch.models import UNet2D, UNetConfig
     from audio_diffusion_torch.parallel import batch_slice, gather_to_host, world
@@ -39,7 +41,7 @@ def _steps(work: str, rank: int) -> None:
     weights = {k[2:]: torch.from_numpy(data[k]) for k in data.files if k.startswith("w.")}
     _, world_size = world()
     for case in spec["cases"]:
-        unet = UNet2D(UNetConfig(**spec["unet"]))
+        unet = UNet2D(UNetConfig(**spec["unet"], remat=case.get("remat", False)))
         unet.load_state_dict(weights, strict=True)
         cfg = tt.TrainConfig(**spec["train"], gradient_accumulation_steps=case["accum"],
                              param_sharding=case["sharding"])
@@ -54,7 +56,9 @@ def _steps(work: str, rank: int) -> None:
         state, metrics = step(state, images[:, rows], seed=spec["seed"], **draws)
         params = gather_to_host(state.params, keep=rank == 0)
         mu = gather_to_host(state.opt_state.mu, keep=rank == 0)
-        out = {"loss": np.float32(metrics["loss"]), "grad_norm": np.float32(metrics["grad_norm"])}
+        unsharded = sum(not isinstance(p, DTensor) for p in unet.parameters()) if case["sharding"] == "fsdp" else 0
+        out = {"loss": np.float32(metrics["loss"]), "grad_norm": np.float32(metrics["grad_norm"]),
+               "unsharded": np.int64(unsharded)}
         if rank == 0:
             out.update({f"p.{k}": v.numpy() for k, v in params.items()})
             out.update({f"mu.{k}": v.numpy() for k, v in mu.items()})
