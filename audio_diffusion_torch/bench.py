@@ -13,8 +13,8 @@ random weights (``--seed``), bf16 compute and the GroupNorm+SiLU kernel on.
 ``--pixel`` runs the 6-block UNet directly on ``--resolution`` pixels,
 ``--quick`` a small pixel UNet at 64x64, ``--pipeline DIR`` a saved pipeline.
 When ``models/latent-audio-diffusion-256`` exists beside the package (what
-``scripts/rebuild_latent256.sh`` builds), the default run benches it too and
-records it under ``"trained"``.
+``python -m audio_diffusion_torch.scripts.rebuild_latent256`` builds), the
+default run benches it too and records it under ``"trained"``.
 
 A request runs as a user's does: with ``--fuse`` (the default) one CUDA graph
 per request signature, with ``--no-fuse`` one per stage. A warm-up call with
@@ -64,9 +64,10 @@ from .pipelines.pipeline import LAUNCH_COUNTERS
 from .schedulers import DDIMScheduler
 from .utils.measure import device_block, emit, resolve_device, synchronize
 
-# The pinned-seed trained artifact scripts/rebuild_latent256.sh produces; when
+# The pinned-seed trained artifact scripts.rebuild_latent256 writes (the port of scripts/rebuild_latent256.sh); when
 # present, the default headline run benches it beside the random-init one.
 TRAINED_256_DIR = Path(__file__).resolve().parents[1] / "models" / "latent-audio-diffusion-256"
+TRAINED_256_HW = (256, 256)  # its output's (height, width): the random-init run it sits beside gives the same
 # --quick: the JAX bench's small pixel UNet at 64x64.
 QUICK_UNET = dict(sample_size=(64, 64), block_out_channels=(32, 64),
                   down_block_types=("DownBlock2D", "AttnDownBlock2D"), up_block_types=("AttnUpBlock2D", "UpBlock2D"),
@@ -366,7 +367,7 @@ def main(argv=None, pipe: AudioDiffusionPipeline = None) -> dict:
 
     # The trained-weights side run: the same loop and gates (with the trained contrast gate) over the pinned
     # artifact in the benched dtype, recorded in the same line.
-    if (source == "latent random-init" and not args.skip_trained and out_hw == (256, 256)
+    if (source == "latent random-init" and not args.skip_trained and out_hw == TRAINED_256_HW
             and (TRAINED_256_DIR / "model_index.json").exists()):
         tpipe = AudioDiffusionPipeline.from_pretrained(str(TRAINED_256_DIR), dtype=args.dtype,
                                                        fused_groupnorm=args.fused_groupnorm, device=device)

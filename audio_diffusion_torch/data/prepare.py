@@ -12,7 +12,10 @@ because ref=max floors at its own amin) are skipped, and the features are
 
 Writing and reading the HF dataset needs the ``datasets`` package (and
 pandas), as in the JAX package; without them those two functions raise an
-``ImportError`` that names the package.
+``ImportError`` that names the package. :func:`write_png_dataset` and
+:func:`encode_slices` need neither: they write the same slices as a folder of
+PNGs, which both packages' ``ImageSliceDataset`` read in the HF dataset's
+order, and its encodings.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import logging
 import os
 import pickle
 import re
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -33,6 +36,7 @@ from ..mel import Mel
 logger = logging.getLogger("audio_diffusion_torch.data")
 
 AUDIO_RE = re.compile(r"\.(mp3|wav|m4a)$", re.IGNORECASE)
+SLICE_DIGITS = 5  # a slice index is an int16 feature of the HF dataset: at most 5 digits
 
 
 def _import_datasets():
@@ -136,6 +140,87 @@ def audio_to_images(
     return dsd
 
 
+def write_png_dataset(mel: Mel, input_dir: str, output_dir: str) -> Dict[str, str]:
+    """Write the slices :func:`audio_to_images` keeps as a folder of PNGs,
+    ``<output_dir>/<file stem>_<slice, zero-padded>.png``, and return {png
+    path: audio file} in the HF dataset's order (the files as
+    :func:`find_audio_files` lists them, then their slices). The names sort
+    into that order, which a folder reader takes, so a trainer's epochs and a
+    dataset's last slices are the HF dataset's; a file stem that would sort
+    otherwise, or two files of one stem, raise. Needs neither ``datasets``
+    nor pandas."""
+    os.makedirs(output_dir, exist_ok=True)
+    slices: Dict[str, str] = {}
+    for f in find_audio_files(input_dir):
+        try:
+            examples = file_to_examples(mel, f)
+        except KeyboardInterrupt:
+            raise
+        except Exception as e:  # skip undecodable files, like the reference
+            logger.warning("skipping %s: %s", f, e)
+            continue
+        stem = os.path.splitext(os.path.basename(f))[0]
+        for ex in examples:
+            path = os.path.join(output_dir, f"{stem}_{ex['slice']:0{SLICE_DIGITS}d}.png")
+            if path in slices:
+                raise ValueError(f"{slices[path]!r} and {f!r} both write {path!r}")
+            with open(path, "wb") as fh:
+                fh.write(ex["image"]["bytes"])
+            slices[path] = f
+    if list(slices) != sorted(slices):
+        raise ValueError(f"the file names under {input_dir!r} do not sort as their slices' PNG names; rename them")
+    if not slices:
+        logger.warning("No valid audio files were found.")
+    return slices
+
+
+def _encoder(encoder, device):
+    """``encoder`` on ``device``, or a seeded random one, ``AudioEncoder().init_params(seed 0)``,
+    as the JAX function inits one from ``key(0)``."""
+    from ..models.audio_encoder import AudioEncoder
+
+    if encoder is None:
+        encoder = AudioEncoder().init_params(torch.Generator().manual_seed(0))
+    return encoder.to(device).eval()
+
+
+def _encode_files(encoder, files: Sequence[str]) -> dict:
+    """{audio file: its encoding}; a file that fails is skipped with a warning."""
+    encodings = {}
+    for f in files:
+        try:
+            encodings[f] = encoder.encode([f])[0].cpu().numpy()
+        except Exception as e:
+            logger.warning("skipping %s: %s", f, e)
+    return encodings
+
+
+def _check_device(device, what: str) -> None:
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{what}: CUDA device requested but torch.cuda is not available; "
+                           "pass device='cpu' to run on the CPU")
+
+
+def _pickle(obj, output_file: str) -> None:
+    os.makedirs(os.path.dirname(output_file) or ".", exist_ok=True)
+    with open(output_file, "wb") as fh:
+        pickle.dump(obj, fh)
+
+
+def encode_slices(slice_files: Dict[str, str], output_file: str, encoder=None,
+                  device: torch.device | str = "cuda") -> dict:
+    """Pickle {png path: AudioEncoder embedding of its audio file} for the
+    folder :func:`write_png_dataset` wrote (``slice_files`` is what it
+    returned), in its order: a trainer looks a folder item's encoding up by
+    its path. Each audio file is encoded once; ``encoder`` as in
+    :func:`encode_audio_dataset`. Needs neither ``datasets`` nor pandas."""
+    _check_device(device, "encode_slices")
+    per_file = _encode_files(_encoder(encoder, device), sorted(set(slice_files.values())))
+    encodings = {png: per_file[f] for png, f in slice_files.items() if f in per_file}
+    _pickle(encodings, output_file)
+    return encodings
+
+
 def encode_audio_dataset(dataset_path: str, output_file: str, encoder=None,
                          device: torch.device | str = "cuda") -> dict:
     """Compute AudioEncoder embeddings for each unique audio_file in a dataset
@@ -143,26 +228,12 @@ def encode_audio_dataset(dataset_path: str, output_file: str, encoder=None,
     ``encoder``: an :class:`AudioEncoder` (moved to ``device``), or None for a
     seeded random one, ``AudioEncoder().init_params(seed 0)``, as the JAX
     function inits one from ``key(0)``."""
-    from ..models.audio_encoder import AudioEncoder
-
-    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("encode_audio_dataset: CUDA device requested but torch.cuda is not available; "
-                           "pass device='cpu' to run on the CPU")
+    _check_device(device, "encode_audio_dataset")
     datasets, _ = _import_datasets()
-    if encoder is None:
-        encoder = AudioEncoder().init_params(torch.Generator().manual_seed(0))
-    encoder = encoder.to(device).eval()
-
+    encoder = _encoder(encoder, device)
     ds = datasets.load_from_disk(dataset_path)
     if isinstance(ds, datasets.DatasetDict):
         ds = ds["train"]
-    encodings = {}
-    for f in sorted(set(ds["audio_file"])):
-        try:
-            encodings[f] = encoder.encode([f])[0].cpu().numpy()
-        except Exception as e:
-            logger.warning("skipping %s: %s", f, e)
-    os.makedirs(os.path.dirname(output_file) or ".", exist_ok=True)
-    with open(output_file, "wb") as fh:
-        pickle.dump(encodings, fh)
+    encodings = _encode_files(encoder, sorted(set(ds["audio_file"])))
+    _pickle(encodings, output_file)
     return encodings

@@ -42,7 +42,6 @@ import numpy as np
 SR = 22050
 HOP = 512
 CLASSES = ["low_arp", "high_arp", "perc_noise", "tone_chord"]
-LOSS_WINDOW = 10
 
 
 def synth_class(cls: str, rng: np.random.Generator, n: int) -> np.ndarray:
@@ -117,22 +116,13 @@ def write_corpus(a, audio_dir: str) -> dict:
     return files_by_class
 
 
-def write_dataset(files_by_class: dict, ds_dir: str, mel) -> dict:
-    """[2/6]: every slice of every WAV as ``<wav stem>_<slice>.png``; returns
+def write_dataset(files_by_class: dict, audio_dir: str, ds_dir: str, mel) -> dict:
+    """[2/6]: every slice of every WAV as a PNG (``data.prepare.write_png_dataset``); returns
     {png path: class}."""
-    from ..data.prepare import file_to_examples
+    from ..data.prepare import write_png_dataset
 
-    os.makedirs(ds_dir, exist_ok=True)
-    png_class = {}
-    for c, files in files_by_class.items():
-        for f in files:
-            stem = os.path.splitext(os.path.basename(f))[0]
-            for ex in file_to_examples(mel, f):
-                path = os.path.join(ds_dir, f"{stem}_{ex['slice']}.png")
-                with open(path, "wb") as fh:
-                    fh.write(ex["image"]["bytes"])
-                png_class[path] = c
-    return png_class
+    class_of = {f: c for c, files in files_by_class.items() for f in files}
+    return {png: class_of[f] for png, f in write_png_dataset(mel, audio_dir, ds_dir).items()}
 
 
 def main(argv=None) -> dict:
@@ -144,6 +134,7 @@ def main(argv=None) -> dict:
     from ..pipelines.pipeline import AudioDiffusionPipeline
     from ..training.__main__ import main as unet_main
     from ..training.train_vae import main as vae_main
+    from ..utils.measure import loss_summary
 
     device = torch.device(a.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -158,7 +149,7 @@ def main(argv=None) -> dict:
     print(f"== [2/6] {a.resolution}x{a.resolution} dataset ==", flush=True)
     ds_dir = os.path.join(a.work, "ds")
     mel = Mel(x_res=a.resolution, y_res=a.resolution, hop_length=HOP, sample_rate=SR, device=device)
-    png_class = write_dataset(files_by_class, ds_dir, mel)
+    png_class = write_dataset(files_by_class, audio_dir, ds_dir, mel)
 
     print("== [3/6] per-class encodings (random-init AudioEncoder on one exemplar) ==", flush=True)
     encoder = AudioEncoder().init_params(torch.Generator().manual_seed(a.seed)).to(device).eval()
@@ -218,14 +209,10 @@ def main(argv=None) -> dict:
     grid_path = os.path.join(a.work, "cond_selectivity_grid.png")
     Image.fromarray(np.concatenate(grid_rows, axis=0)).save(grid_path)
     n_sel = sum(r["selective"] for r in report.values())
-    losses = unet_result["losses"]
-    window = min(LOSS_WINDOW, len(losses))  # one step's loss swings with its random timesteps
     result = {"selective_classes": f"{n_sel}/{len(CLASSES)}", "per_class": report, "grid": grid_path,
               "device": str(device), "files": sum(len(f) for f in files_by_class.values()), "vae": vae_result,
               "unet": {"steps": unet_result["steps"], "seconds": unet_result["seconds"],
-                       "loss_first": losses[0], "loss_last": losses[-1], "loss_window": window,
-                       "loss_first_mean": float(np.mean(losses[:window])),
-                       "loss_last_mean": float(np.mean(losses[-window:]))}}
+                       **loss_summary(unet_result["losses"])}}
     print(json.dumps(result))
     return result
 

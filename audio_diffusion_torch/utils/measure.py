@@ -1,6 +1,7 @@
 """What the measurement programs share (``python -m audio_diffusion_torch.bench``,
 ``scripts.stage_ledger``, ``scripts.mfu`` and ``scripts.bench_serving``): the
-device a measurement ran on, the timers, and the one JSON line each prints.
+device a measurement ran on, the timers, the one JSON line each prints, and
+the summary of a trainer's losses that the recipes in ``scripts`` print.
 
 Every line names its device (:func:`device_block`): on a CUDA device the
 card's name (``torch.cuda.get_device_name``), its power limit as
@@ -81,6 +82,18 @@ def stage_ms(fn: Callable[[], object], reps: int, device: torch.device) -> List[
 
 def median(values) -> float:
     return float(statistics.median(values))
+
+
+def loss_summary(losses: list, window: int = 10) -> dict:
+    """A trainer's first and last losses, and the means of its first and last
+    ``window`` steps: one diffusion step's loss swings with its random
+    timesteps, so the means say whether it fell."""
+    if not losses:
+        return {"loss_first": None, "loss_last": None}
+    window = min(window, len(losses))
+    return {"loss_first": losses[0], "loss_last": losses[-1], "loss_window": window,
+            "loss_first_mean": float(statistics.mean(losses[:window])),
+            "loss_last_mean": float(statistics.mean(losses[-window:]))}
 
 
 def emit(line: dict) -> dict:

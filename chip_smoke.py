@@ -147,8 +147,8 @@ Phases, one line each (plus detail lines):
  14. dp      the [train] setup data parallel, one process per rank through
              ``run_training`` (this script re-run with --dp-rank): with 2 or more
              cards NCCL over min(count, 4) ranks, DDP and then FSDP; on one card
-             DDP over 2 ranks on cuda:0 with gloo, then DDP and FSDP at world 1
-             over NCCL. 6 steps, then resumed to 8: every rank's losses bitwise
+             DDP over 2 ranks on cuda:0 with gloo, beside DDP and FSDP at world 1
+             over NCCL (the two groups run side by side). 6 steps, then resumed to 8: every rank's losses bitwise
              the same, rank 0 alone saves, step 1 within 1e-3 of a one-process
              run, 6 x accum flash_mha launches and FlashMHA backwards per step
              on every rank; steps/s, the all-reduce of the gradient's bytes,
@@ -166,10 +166,20 @@ Phases, one line each (plus detail lines):
              (bf16, fused GroupNorm) answers a batch-8 request at 50 steps
              bitwise the original's, 64 GroupNorm+SiLU and 6 attention
              launches per denoise step; bytes and walls of each save and load
- 18. cond-train  (group interop; run last) the conditional recipe (scripts.cond_selectivity_evidence)
+ 18. cond-train  (group interop) the conditional recipe (scripts.cond_selectivity_evidence)
              at full width with 24 VAE and 100 UNet steps: the loss falls,
              steps/s, peak memory, the selectivity, 44 GroupNorm+SiLU
              launches per UNet forward of its evaluation and no attention
+ 19. rebuild  (group interop; run last) both pinned-seed rebuild recipes
+             (scripts.rebuild_latent256 and rebuild_latent512) at full width,
+             their corpus and steps cut (REBUILD_CUTS): every stage on the
+             card, the bf16 bench line's gates with the trained contrast
+             floor, each sample's nearest-neighbour MAE under
+             REBUILD_NN_BOUND (random images: ~72), each stage's launches (training: 6 flash_mha and 6 backwards per
+             latent-256 step; sampling 64 / 44 GroupNorm+SiLU and 6 / 0
+             attention launches per forward), a batch-2 trained request of
+             each against the plain versions (uint8 within 1), and bench's
+             trained-weights side run over the cut latent-256 artifact
 Then one JSON line with each kernel's launches (``launches``: the [main]
 requests; ``staged_launches``: the [staged] requests' staged replays;
 ``encode_launches``: [staged]'s replayed ``encode`` calls;
@@ -180,7 +190,8 @@ backwards; ``remat_launches``: the [remat] runs with remat (latent-256 and
 conditional-latent-512); ``dp_launches``: each [dp] rank's forwards and backwards;
 ``shard_launches``: the [shard] calls and requests; ``bench_launches``: the
 [bench] phase's programs; ``interop_launches``:
-each [native] layout's request and the [cond-train] run), error and times, the card's
+each [native] layout's request and the [cond-train] run; ``rebuild_launches``:
+[rebuild]'s by recipe and stage, its plain checks and bench's side run), error and times, the card's
 name and power limit as nvidia-smi prints them, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without a CUDA device it exits non-zero at once and prints no result.
@@ -201,7 +212,7 @@ REPO = Path(__file__).resolve().parent
 STEPS = 50
 REQUESTS = ((1, 101), (8, 102), (32, 103))  # (batch, generator seed)
 FUSED_PROFILES = 3  # [fused], [staged]: profiled replays allowed to see the credited launches (profiled_launches)
-STAGED_REPS = 3  # [staged]: calls per path, batch and kind; the median wall is printed
+STAGED_REPS = 1  # [staged]: calls per path, batch and kind; the median wall is printed
 STAGED_IMAGES_BATCH = ROUND_TRIP_BATCH = 8  # [staged]: return_images_only, and encode's round trip
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense): the bounds' denominators.
 HBM_BYTES_PER_S = 3.35e12
@@ -265,6 +276,26 @@ NATIVE_LAYOUTS = ("diffusers", "native", "safetensors")
 # [cond-train]: the recipe at full width with its 1,200 VAE and 6,000 UNet steps cut to fit the run's time
 COND_TRAIN_VAE_STEPS, COND_TRAIN_UNET_STEPS = 24, 100
 COND_TRAIN_CLASSES, COND_TRAIN_EVAL_BATCH = 4, 8
+# [rebuild]: both rebuild recipes at full width, cut to fit the run's time: 8 files of 3 slices (the recipes: 24 of
+# 2), their VAE steps (1,400, the discriminator from 600) and UNet steps (1,000, 100 warm-up) cut, the bf16 bench
+# line alone (and f32) at 1 request x 1 window (5 x 3) of batch 2 (32), the conditional record at 2 samples (8);
+# bench's side run at batch 2 (32); every request there, and the trained requests against the plain versions, at
+# REBUILD_STEPS sampling steps (50)
+REBUILD_CORPUS = ["--files", "8", "--slices", "3"]
+REBUILD_CUTS = {
+    "latent256": ["--vae_steps", "30", "--disc_start", "24", "--unet_steps", "30", "--unet_warmup", "10",
+                  "--bench_batch", "2", "--bench_bf16_only"],
+    "conditional_latent512": ["--vae_steps", "16", "--disc_start", "12", "--unet_steps", "20", "--unet_warmup", "5",
+                              "--eval_batch", "2", "--bench_batch", "2", "--bench_bf16_only"],
+}
+# Each trained sample's nearest-neighbour MAE over the corpus (uint8) must stay under this; random images sit near 72
+REBUILD_NN_BOUND = 65
+REBUILD_STEPS = 5
+REBUILD_BENCH = ["--bench_iters", "1", "--bench_reps", "1", "--bench_steps", str(REBUILD_STEPS), "--eval_steps",
+                 str(REBUILD_STEPS)]
+REBUILD_NORMS = {"latent256": 64, "conditional_latent512": COND_NORMS}  # GroupNorm+SiLU calls per UNet forward
+REBUILD_ATTN = {"latent256": TRAIN_ATTN, "conditional_latent512": 0}  # SelfAttention2D calls per UNet forward
+REBUILD_PLAIN = (2, 501)  # the trained request held against the plain versions: (batch, generator seed)
 
 
 def fail(msg: str) -> None:
@@ -1027,6 +1058,7 @@ def describe_probe(probe: dict) -> str:
 
 
 TIER_PROBES = (SERVE_TIER, 32)  # [tier]: the batches a row alone is held against
+TIER_TIMING_REPS = 5  # [tier]: timed forwards per batch, eager and replayed
 
 
 def phase_tier(pipe, card: str) -> dict:
@@ -1055,7 +1087,8 @@ def phase_tier(pipe, card: str) -> dict:
 
     def forward_ms(unet):
         with torch.inference_mode():
-            return {b: (cuda_time_ms(lambda: unet(x[:b], t), 10), graph_time_ms(lambda: unet(x[:b], t), 10))
+            return {b: (cuda_time_ms(lambda: unet(x[:b], t), TIER_TIMING_REPS),
+                        graph_time_ms(lambda: unet(x[:b], t), TIER_TIMING_REPS))
                     for b in (1, SERVE_TIER, 32)}
 
     def times(ms):
@@ -3263,33 +3296,45 @@ def dp_rank(rank: int, world: int, init: str, device: str, backend: str, shardin
     (root / f"{tag}_{rank}.json").write_text(json.dumps(out))
 
 
-def _dp_launch(root: Path, tag: str, world: int, backend: str, devices: list, shardings: tuple) -> list:
-    """Run ``world`` ranks of ``dp_rank`` as processes; returns their JSON reports."""
-    rendezvous = root / f"rendezvous_{tag}"
-    logs = [open(root / f"{tag}_{rank}.log", "w") for rank in range(world)]
-    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dp-rank", str(rank),
-                               "--dp-world", str(world), "--dp-init", f"file://{rendezvous}",
-                               "--dp-device", devices[rank], "--dp-backend", backend,
-                               "--dp-shardings", ",".join(shardings), "--dp-root", str(root), "--dp-tag", tag],
-                              stdout=log, stderr=subprocess.STDOUT) for rank, log in enumerate(logs)]
+def _dp_launch(root: Path, plan: list) -> dict:
+    """Run each group of ``plan`` ((tag, world, backend, devices, shardings)),
+    side by side: ``world`` ranks of ``dp_rank`` as processes each. Returns
+    {tag: (the ranks' JSON reports, seconds from the common start until the
+    group's last rank ended)}."""
+    t0 = time.perf_counter()
+    groups = {}
+    for tag, world, backend, devices, shardings in plan:
+        logs = [open(root / f"{tag}_{rank}.log", "w") for rank in range(world)]
+        groups[tag] = logs, [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--dp-rank", str(rank), "--dp-world", str(world),
+             "--dp-init", f"file://{root / f'rendezvous_{tag}'}", "--dp-device", devices[rank], "--dp-backend",
+             backend, "--dp-shardings", ",".join(shardings), "--dp-root", str(root), "--dp-tag", tag],
+            stdout=log, stderr=subprocess.STDOUT) for rank, log in enumerate(logs)]
+    walls, failed = {}, []
     try:
-        deadline = time.monotonic() + DP_RANK_TIMEOUT_S
-        for p in procs:
-            p.wait(timeout=max(1.0, deadline - time.monotonic()))
-    except subprocess.TimeoutExpired:
-        fail(f"[dp] {tag}: a rank did not finish within {DP_RANK_TIMEOUT_S} s")
+        while len(walls) < len(groups) and not failed:  # a rank that fails ends the phase: its peers would wait
+            if time.perf_counter() - t0 > DP_RANK_TIMEOUT_S:
+                fail(f"[dp] a rank did not finish within {DP_RANK_TIMEOUT_S} s")
+            for tag, (_, procs) in groups.items():
+                failed += [(tag, rank, p.returncode) for rank, p in enumerate(procs) if p.poll() not in (None, 0)]
+                if tag not in walls and all(p.poll() is not None for p in procs):
+                    walls[tag] = time.perf_counter() - t0
+            time.sleep(0.1)
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        for log in logs:
-            log.close()
-    for rank, p in enumerate(procs):
-        if p.returncode != 0:
-            print((root / f"{tag}_{rank}.log").read_text()[-6000:], file=sys.stderr)
-            fail(f"[dp] {tag}: rank {rank} exited {p.returncode}")
-    return [json.loads((root / f"{tag}_{rank}.json").read_text()) for rank in range(world)]
+        for logs, procs in groups.values():
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for log in logs:
+                log.close()
+    for tag, rank, code in failed[:1]:
+        print((root / f"{tag}_{rank}.log").read_text()[-6000:], file=sys.stderr)
+        fail(f"[dp] {tag}: rank {rank} exited {code}")
+    out = {}
+    for tag, (_, procs) in groups.items():
+        out[tag] = [json.loads((root / f"{tag}_{rank}.json").read_text()) for rank in range(len(procs))], walls[tag]
+    return out
 
 
 def phase_dp(card: str, root: Path) -> dict:
@@ -3320,17 +3365,18 @@ def phase_dp(card: str, root: Path) -> dict:
         w = min(n, DP_MAX_RANKS)
         plan = [("nccl", w, "nccl", [f"cuda:{i}" for i in range(w)], ("replicated", "fsdp"))]
     else:  # NCCL refuses two ranks on one card; gloo carries DDP's all-reduce, not FSDP's collectives
+        # the two groups run side by side on the card: their times include each other's load
         plan = [("gloo", 2, "gloo", ["cuda:0", "cuda:0"], ("replicated",)),
                 ("nccl1", 1, "nccl", ["cuda:0"], ("replicated", "fsdp"))]
     launches, peaks = {}, {}
     want = {"flash_mha": TRAIN_ATTN * TRAIN_ACCUM * DP_RESUME_TO,
             "FlashMHA.backward": TRAIN_ATTN * TRAIN_ACCUM * DP_RESUME_TO, "group_norm_silu": 0}
+    ran = _dp_launch(root, plan)
+    beside = f" (side by side with {', '.join(t for t, *_ in plan[1:])})" if len(plan) > 1 else ""
     for tag, world, backend, devices, shardings in plan:
-        t0 = time.perf_counter()
-        reports = _dp_launch(root, tag, world, backend, devices, shardings)
-        wall = time.perf_counter() - t0
+        reports, wall = ran[tag]
         print(f"[dp] {tag}: backend {backend}, world {world}, devices {devices}; {wall:.2f} s for "
-              f"{'+'.join(shardings)}; all-reduce of the gradient ({reports[0]['allreduce_mib']:.1f} MiB f32, "
+              f"{'+'.join(shardings)}{beside if tag == plan[0][0] else ''}; all-reduce of the gradient ({reports[0]['allreduce_mib']:.1f} MiB f32, "
               f"host wall) {reports[0]['allreduce_ms']:.4f} ms  [{card}]")
         for sharding in shardings:
             runs = [r["configs"][sharding] for r in reports]
@@ -3645,6 +3691,185 @@ def phase_cond_train(card: str, root: Path) -> dict:
     return launches
 
 
+@contextlib.contextmanager
+def plain_versions():
+    """The UNet's GroupNorm+SiLU and self-attention through their plain
+    PyTorch versions on the card (the wrappers would launch the kernels)."""
+    from audio_diffusion_torch.models import unet2d
+    from audio_diffusion_torch.ops import attention as at
+    from audio_diffusion_torch.ops import fused_groupnorm as gn
+
+    kernels = unet2d.fused_group_norm_silu, unet2d.multi_head_attention
+    unet2d.fused_group_norm_silu, unet2d.multi_head_attention = gn.group_norm_silu_plain, at.attention_plain
+    try:
+        yield
+    finally:
+        unet2d.fused_group_norm_silu, unet2d.multi_head_attention = kernels
+
+
+@contextlib.contextmanager
+def unimportable(*modules: str):
+    """``import`` of each of ``modules`` raises ImportError inside the block,
+    imported before or not."""
+    kept = {m: sys.modules.get(m) for m in modules}
+    sys.modules.update(dict.fromkeys(modules))
+    try:
+        yield
+    finally:
+        for m, mod in kept.items():
+            if mod is None:
+                sys.modules.pop(m, None)
+            else:
+                sys.modules[m] = mod
+
+
+def trained_against_plain(out: str, name: str, encoding) -> dict:
+    """One batch-2 request of the trained pipeline in its saved precision (f32),
+    op by op, with the kernels against the same request through the plain
+    versions, which launch nothing: uint8 within 1."""
+    import numpy as np
+    import torch
+
+    from audio_diffusion_torch.pipelines.pipeline import AudioDiffusionPipeline
+    from audio_diffusion_torch.scripts.rebuild import launch_counts
+
+    pipe = AudioDiffusionPipeline.from_pretrained(out, fused_groupnorm=True, device="cuda")
+    batch, seed = REBUILD_PLAIN
+
+    def call():
+        with pipe._uncaptured():
+            return pipe(batch_size=batch, steps=REBUILD_STEPS, encoding=encoding, return_images_only=True,
+                        generator=torch.Generator(device="cuda").manual_seed(seed))
+
+    before = launch_counts()
+    kernels = call()
+    launched = {k: v - before[k] for k, v in launch_counts().items()}
+    before = launch_counts()
+    with plain_versions():
+        plain = call()
+    if launch_counts() != before:
+        fail(f"[rebuild] {name}: the plain versions launched a kernel")
+    want = {"group_norm_silu": REBUILD_STEPS * REBUILD_NORMS[name], "flash_mha": REBUILD_STEPS * REBUILD_ATTN[name],
+            "FlashMHA.backward": 0}
+    if launched != want:
+        fail(f"[rebuild] {name}: the trained request launched {launched}, expected {want}")
+    diff = int(np.abs(kernels.astype(np.int32) - plain.astype(np.int32)).max())
+    if kernels.shape != plain.shape or diff > 1:
+        fail(f"[rebuild] {name}: the trained request with the kernels is {diff} uint8 from the plain versions")
+    del pipe
+    torch.cuda.empty_cache()
+    return {"max_uint8_diff": diff, "differing_share": float((kernels != plain).mean()), "launches": launched,
+            "std": float(kernels.std())}
+
+
+def phase_rebuild(card: str, root: Path) -> dict:
+    """Both pinned-seed rebuild recipes (``scripts.rebuild_latent256`` and
+    ``scripts.rebuild_latent512``) at full width, cut (REBUILD_CUTS), with
+    ``datasets`` and ``pandas`` made unimportable: every stage runs on the
+    card, the bf16 bench line passes its gates with the trained contrast
+    floor, each sample of the fidelity record lies nearer the corpus than
+    REBUILD_NN_BOUND, and each stage launches what it implies (the UNet's training 6
+    ``flash_mha`` and 6 backwards per latent-256 step and no GroupNorm
+    kernel; each bench request and each sampling step 64 / 44 GroupNorm+SiLU
+    and 6 / 0 attention launches per forward, f32 attention once per block of
+    8 rows; the record's first call warms its denoise stage up, so its steps
+    run twice). Then a batch-2 trained request of each artifact against the
+    plain versions, and bench's trained-weights side run over the cut
+    latent-256 artifact (``bench.TRAINED_256_DIR`` pointed at it, so nothing
+    lands in the checkout's ``models/``). Returns every launch count."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from audio_diffusion_torch import bench
+    from audio_diffusion_torch.data.dataset import load_encodings
+    from audio_diffusion_torch.models import unet2d
+    from audio_diffusion_torch.scripts import rebuild
+    from audio_diffusion_torch.scripts.rebuild import launch_counts
+
+    t_phase = time.perf_counter()
+    out = {}
+    for recipe in (rebuild.LATENT_256, rebuild.CONDITIONAL_512):
+        name = recipe.name
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf), unimportable("datasets", "pandas"):
+            r = rebuild.main(recipe, ["--output", str(root / name), *REBUILD_CORPUS, *REBUILD_CUTS[name],
+                                      *REBUILD_BENCH])
+        wall = time.perf_counter() - t0
+        if json.loads(buf.getvalue().strip().splitlines()[-1]) != json.loads(json.dumps(r)):
+            fail(f"[rebuild] {name}: the last line printed is not the recipe's result")
+        st, lc = r["stages"], r["launches"]
+        norms, attn = REBUILD_NORMS[name], REBUILD_ATTN[name]
+        unet_steps = int(REBUILD_CUTS[name][REBUILD_CUTS[name].index("--unet_steps") + 1])
+        want = {"corpus": (0, 0, 0), "dataset": (0, 0, 0), "encodings": (0, 0, 0), "vae": (0, 0, 0),
+                "unet": (0, attn * unet_steps, attn * unet_steps),
+                "fidelity": (2 * REBUILD_STEPS * norms, 2 * REBUILD_STEPS * attn, 0)}
+        for stage, counts in lc.items():
+            got = (counts["group_norm_silu"], counts["flash_mha"], counts["FlashMHA.backward"])
+            if stage in want and got != want[stage]:
+                fail(f"[rebuild] {name} {stage}: launches {got}, expected {want[stage]}")
+        if not (lc["bench"]["group_norm_silu"] > 0 and (lc["bench"]["flash_mha"] > 0) == (attn > 0)):
+            fail(f"[rebuild] {name} bench: launches {lc['bench']}")
+        for line in r["bench"]:
+            per, cfg = line["launches"]["per_request"], line["config"]
+            # f32 attention blocks run on blocks of ROW_BLOCK rows on the card (models/unet2d.py::in_row_blocks)
+            blocks = -(-cfg["batch"] // unet2d.ROW_BLOCK) if cfg["dtype"] == "float32" else 1
+            if per != {"group_norm_silu": REBUILD_STEPS * norms, "flash_mha": REBUILD_STEPS * attn * blocks}:
+                fail(f"[rebuild] {name} bench {line['config']['dtype']}: {per} launches per request")
+            _on_the_card(line, f"{name} bench")
+        if not (all(v < REBUILD_NN_BOUND for v in r["fidelity"]["sample_nn_mae_uint8"])
+                and r["fidelity"]["sample_std_uint8"] > 5):
+            fail(f"[rebuild] {name}: fidelity record {r['fidelity']} (each sample's NN MAE under "
+                 f"{REBUILD_NN_BOUND}, the samples' std over 5)")
+        if st["unet"]["steps"] != unet_steps or not st["unet"]["loss_last_mean"] < st["unet"]["loss_first_mean"]:
+            fail(f"[rebuild] {name}: the UNet's loss did not fall: {st['unet']}")
+        enc = None
+        if recipe.conditional:
+            encs = load_encodings(str(Path(r["work"]) / "encodings.p"))
+            enc = np.stack(list({v.tobytes(): v for v in encs.values()}.values())[:REBUILD_PLAIN[0]])
+        plain = trained_against_plain(str(root / name), name, enc)
+        out[name] = {**lc, "plain_check": plain["launches"]}
+        timing = "; ".join(f"{k} {v['seconds']:.2f} s" + (f" ({v['steps']} steps)" if "steps" in v else "")
+                           + f", peak {v['peak_allocated_gib']:.4f} GiB" for k, v in st.items())
+        print(f"[rebuild] {name} at full width, cut ({' '.join(REBUILD_CORPUS + REBUILD_CUTS[name])}): {timing}; "
+              f"recipe {wall:.2f} s; VAE loss {st['vae']['loss_first']:.4f} -> {st['vae']['loss_last']:.4f}, UNet "
+              f"mean of the first / last {st['unet']['loss_window']} steps {st['unet']['loss_first_mean']:.4f} -> "
+              f"{st['unet']['loss_last_mean']:.4f}  [{card}]")
+        for line in r["bench"]:
+            print(f"[rebuild] {name} bench {line['config']['dtype']} b{line['config']['batch']}: {line['value']:.4f} "
+                  f"{line['unit']}, gates {line['fidelity']}, launches per request {line['launches']['per_request']}")
+        print(f"[rebuild] {name} fidelity record: {r['fidelity']}; the trained b{REBUILD_PLAIN[0]} f32 request with "
+              f"the kernels vs the plain versions: max {plain['max_uint8_diff']} uint8 on "
+              f"{plain['differing_share']:.6f} of the pixels (std {plain['std']:.4f}); launches by stage {lc}")
+
+    kept = bench.TRAINED_256_DIR
+    bench.TRAINED_256_DIR = root / rebuild.LATENT_256.name
+    try:
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        before = launch_counts()
+        with contextlib.redirect_stdout(buf):
+            line = bench.main(["--iters", "1", "--reps", "1", "--batch", "2", "--steps", str(REBUILD_STEPS)])
+        side = {k: v - before[k] for k, v in launch_counts().items()}
+    finally:
+        bench.TRAINED_256_DIR = kept
+    trained = line.get("trained")
+    if trained is None:
+        fail("[rebuild] bench took no trained-weights side run over the rebuilt latent-256 pipeline")
+    for what, block in (("random-init", line), ("trained", trained)):
+        if block["launches"]["per_request"] != {"group_norm_silu": REBUILD_STEPS * 64,
+                                                "flash_mha": REBUILD_STEPS * TRAIN_ATTN}:
+            fail(f"[rebuild] side run {what}: {block['launches']['per_request']} launches per request")
+    out["side_run"] = side
+    print(f"[rebuild] bench side run ({time.perf_counter() - t0:.2f} s): random-init {line['value']:.4f} "
+          f"{line['unit']}, trained ({trained['pipeline']}, {trained['dtype']}) {trained['value']:.4f}, gates "
+          f"{trained['fidelity']}, launches per request {trained['launches']['per_request']}  [{card}]")
+    print(f"[rebuild] ok in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 PHASE_GROUPS = ("kernels", "main", "apps", "cond", "train", "dp", "interop")
 
 
@@ -3685,15 +3910,16 @@ def main(argv=None) -> int:
                          "prepare, "
                          "golden; cond; train: "
                          "attn-grad, train, remat, train-pixel, train-vae; dp: dp, shard, encoder-train; interop: "
-                         "native, cond-train); a partial run prints no result lines")
+                         "native, cond-train, rebuild); a partial run prints no result lines")
     # one rank of [dp]: the script re-runs itself with these
     for name in ("rank", "world", "init", "device", "backend", "shardings", "root", "tag"):
         ap.add_argument(f"--dp-{name}", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     only = set(args.only.split(","))
-    if not only <= {*PHASE_GROUPS, "tier", "shard", "bench"}:
+    if not only <= {*PHASE_GROUPS, "tier", "shard", "bench", "rebuild"}:
         ap.error(f"--only takes {PHASE_GROUPS}, tier (the [serve] phase's tier probe alone), shard (the dp "
-                 "group without [dp]) and bench (the main group's [bench] alone)")
+                 "group without [dp]), bench (the main group's [bench] alone) and rebuild (the interop group's "
+                 "[rebuild] alone)")
     if not (REPO / "audio_diffusion_torch" / "csrc").is_dir():
         print("chip_smoke: audio_diffusion_torch/ not found beside this script; run it from a checkout",
               file=sys.stderr)
@@ -3718,6 +3944,9 @@ def main(argv=None) -> int:
           f"cudnn.benchmark={torch.backends.cudnn.benchmark} cudnn.deterministic={torch.backends.cudnn.deterministic}")
     t_start = time.perf_counter()
 
+    def lap(what: str) -> None:
+        print(f"[time] {what} done at {time.perf_counter() - t_start:.1f} s")
+
     from audio_diffusion_torch.models import unconditional_config
 
     phase_build()
@@ -3739,11 +3968,15 @@ def main(argv=None) -> int:
         launches, main_walls = phase_main(pipe, card)
         phase_layers(pipe, card)
         phase_fused(pipe, card, phase_profile(pipe, card))
+        lap("[main], [layers], [profile], [fused]")
         staged = phase_staged(pipe, card)
         phase_fidelity(pipe, card)
+        lap("[staged], [fidelity]")
         with tempfile.TemporaryDirectory() as serve_dir:
             serve_launches = phase_serve(pipe, card, Path(serve_dir))
+            lap("[serve] and [tier]")
             phase_serve_f32(pipe, card)
+            lap("[serve] f32")
             bench_launches = phase_bench(pipe, card, Path(serve_dir), main_walls)
         print(f"[time] the main group done at {time.perf_counter() - t_start:.1f} s")
     if "apps" in only:
@@ -3793,6 +4026,7 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory() as d:
             train_launches = phase_train(card, Path(d))
             remat_launches = phase_remat(card, Path(d))
+            lap("[attn-grad], [train], [remat]")
             phase_train_profile(card)
             phase_train_pixel(card)
             phase_train_vae(card, Path(d) / "slices")
@@ -3803,6 +4037,7 @@ def main(argv=None) -> int:
 
         with tempfile.TemporaryDirectory() as d:
             dp_launches = phase_dp(card, Path(d))
+        lap("[dp]")
     if "dp" in only or "shard" in only:
         shard_launches = phase_shard(card)
         phase_encoder_train(card)
@@ -3813,6 +4048,14 @@ def main(argv=None) -> int:
 
         with tempfile.TemporaryDirectory() as d:
             cond_train_launches = phase_cond_train(card, Path(d))
+        lap("[cond-train]")
+    if "interop" in only or "rebuild" in only:
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as d:
+            rebuild_launches = phase_rebuild(card, Path(d))
+        release_device_memory("the rebuild recipes")
+        print(f"[time] the interop group done at {time.perf_counter() - t_start:.1f} s")
     if only != set(PHASE_GROUPS):  # a partial run
         print(f"chip_smoke: partial run of {sorted(only)} done in {time.perf_counter() - t_start:.1f} s; no result")
         return 0
@@ -3852,6 +4095,18 @@ def main(argv=None) -> int:
               "bench_launches": bench_launches["flash_mha"],
               "grad_ms": grad_t["ms"], "grad_graph_ms": grad_t["graph_ms"], "grad_library_ms": grad_t["library_ms"],
               "grad_library_graph_ms": grad_t["library_graph_ms"], "max_abs_err": at_err["f32"]}
+    def rebuild_column(kernel: str) -> dict:
+        """``kernel``'s [rebuild] launches by recipe and stage (the UNet's training: forward and backward), the
+        trained requests held against the plain versions, and bench's side run."""
+        col = {"side_run": rebuild_launches["side_run"][kernel]}
+        for recipe in ("latent256", "conditional_latent512"):
+            col[recipe] = {stage: ({"forward": c[kernel], "backward": c["FlashMHA.backward"]}
+                                   if kernel == "flash_mha" and stage == "unet" else c[kernel])
+                           for stage, c in rebuild_launches[recipe].items()}
+        return col
+
+    gn_row["rebuild_launches"], at_row["rebuild_launches"] = rebuild_column("group_norm_silu"), rebuild_column(
+        "flash_mha")
     keys = ("ms", "graph_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_graph_ms")
     kernels = [{**gn_row, **{k: gn_t[k] for k in keys}}, {**at_row, **{k: at_t[k] for k in keys}}]
     for k in kernels:
@@ -3872,6 +4127,11 @@ def main(argv=None) -> int:
         fail(f"the kernels were not launched on the convenience layer's path: {apps_launches}")
     if not all(n > 0 for v in native_launches.values() for n in v.values()):
         fail(f"the kernels were not launched by the reloaded pipelines: {native_launches}")
+    r256, r512 = rebuild_launches["latent256"], rebuild_launches["conditional_latent512"]
+    if not (all(r256[st]["group_norm_silu"] > 0 and r256[st]["flash_mha"] > 0 for st in ("bench", "fidelity"))
+            and r256["unet"]["flash_mha"] > 0 and r256["unet"]["FlashMHA.backward"] > 0
+            and all(r512[st]["group_norm_silu"] > 0 for st in ("bench", "fidelity"))):
+        fail(f"the kernels were not launched on the rebuild recipes' paths: {rebuild_launches}")
     if not cond_train_launches["group_norm_silu"] > 0:
         fail(f"the GroupNorm+SiLU kernel was not launched on the conditional recipe's path: {cond_train_launches}")
     print(f"(times per UNet forward at batch 32, bf16: ms by CUDA events around eager calls, host gaps included; "

@@ -232,6 +232,8 @@ def test_port_imports_no_jax():
             "audio_diffusion_torch.scripts.convert_checkpoint, audio_diffusion_torch.parallel, "
             "audio_diffusion_torch.utils.flax_msgpack, audio_diffusion_torch.utils.safetensors_io, "
             "audio_diffusion_torch.scripts.make_audio, audio_diffusion_torch.scripts.cond_selectivity_evidence, "
+            "audio_diffusion_torch.scripts.rebuild, audio_diffusion_torch.scripts.rebuild_latent256, "
+            "audio_diffusion_torch.scripts.rebuild_latent512, "
             "audio_diffusion_torch.examples.test_mel, audio_diffusion_torch.examples.test_model, "
             "audio_diffusion_torch.examples.test_vae, audio_diffusion_torch.examples.train_model, "
             "audio_diffusion_torch.examples.latent_diffusion, audio_diffusion_torch.examples.conditional_generation; "
