@@ -37,6 +37,7 @@ import math
 
 import torch
 
+from ..utils.flag_window import FlagWindow
 from . import _build
 
 HEAD_DIMS = (8, 16, 32, 64, 128)  # the head dims csrc/mha.cu instantiates
@@ -253,13 +254,55 @@ def dot_product_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
     return torch.einsum("bhnm,bmhd->bnhd", probs, v)
 
 
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """torch's ``F.scaled_dot_product_attention`` over layout (B, N, heads, d)."""
+    return torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)).transpose(1, 2)
+
+
+# torch's deterministic algorithms, strictly (an op that has both forms takes its deterministic one), held only while
+# an :class:`SDPA` backward runs. The setting is one for the process; other threads see it meanwhile.
+deterministic_algorithms = FlagWindow(
+    lambda: (torch.are_deterministic_algorithms_enabled(), torch.is_deterministic_algorithms_warn_only_enabled()),
+    lambda flags: torch.use_deterministic_algorithms(flags[0], warn_only=flags[1]), (True, False))
+
+
+class SDPA(torch.autograd.Function):
+    """The gradient path of :func:`dot_product_attention` on the card: a
+    backward that repeats itself bitwise.
+
+    ``SDPA.apply(q, k, v)``: the forward is :func:`_sdpa` and saves q, k and
+    v. Left free, torch's attention backwards (cuDNN's, flash's, the
+    memory-efficient one) sum the query gradient with atomics in a
+    run-dependent order at the conditional UNet's self-attention shapes
+    (N = 4,096 and 1,024; scripts/repeat_probe.py). The backward therefore
+    recomputes :func:`_sdpa` from the saved inputs and takes its VJP inside
+    :data:`deterministic_algorithms`, where torch dispatches to a backward
+    with a fixed order (flash attention's deterministic one in bf16). No op
+    there calls cuBLAS, whose own check asks for ``CUBLAS_WORKSPACE_CONFIG``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return _sdpa(q, k, v)
+
+    @staticmethod
+    def backward(ctx, grad):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad(), deterministic_algorithms():
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            return torch.autograd.grad(_sdpa(*leaves), leaves, grad)
+
+
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """The conditional UNet's ``CrossAttention`` core, (B, N, heads, d) queries
     over (B, M, heads, d) keys and values. In the JAX package it is XLA's
     ``jax.nn.dot_product_attention``, not a Pallas kernel, so the card runs
     torch's ``F.scaled_dot_product_attention`` (no logits in memory) and no
-    kernel of this repo; CPU tensors take :func:`dot_product_attention_plain`."""
+    kernel of this repo, through :class:`SDPA` when autograd records the
+    call; CPU tensors take :func:`dot_product_attention_plain`."""
     if q.is_cpu:
         return dot_product_attention_plain(q, k, v)
-    return torch.nn.functional.scaled_dot_product_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)).transpose(1, 2)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return SDPA.apply(q, k, v)
+    return _sdpa(q, k, v)

@@ -550,13 +550,16 @@ class AudioDiffusionPipeline:
         the end of every key in ``self._compiled``: the scheduler (its type
         and config), the UNet's and VAE's compute dtypes, and the backend
         flags that choose kernels (cuDNN on or off, as the batcher switches
-        it, and TF32), and last the UNet, VAE and Mel objects themselves
-        (compared by identity): a graph reads their tensors where they lay at
-        capture, so a module put in another's place needs a program of its
-        own."""
+        it; cuDNN's and torch's deterministic algorithms, as a training step
+        in the same process switches them; TF32), and last the UNet, VAE and
+        Mel objects themselves (compared by identity): a graph reads their
+        tensors where they lay at capture, so a module put in another's place
+        needs a program of its own."""
         return (self.scheduler, self.unet.config.dtype, self.vqvae.config.dtype if self.vqvae is not None else None,
-                torch.backends.cudnn.enabled, torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
-                self.unet, self.vqvae, self.mel)
+                torch.backends.cudnn.enabled, torch.backends.cudnn.deterministic,
+                (torch.are_deterministic_algorithms_enabled(), torch.is_deterministic_algorithms_warn_only_enabled()),
+                torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32, self.unet, self.vqvae,
+                self.mel)
 
     def signature(self, steps, eta, rows, enc, pcm16, start_step, mask_start, mask_end, input_mode) -> tuple:
         """The key of a request's fused program in ``self._compiled``: the JAX

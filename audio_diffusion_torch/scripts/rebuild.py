@@ -186,13 +186,58 @@ def missed_bounds(recipe: Recipe, record: dict) -> list:
     return missed
 
 
+def work_paths(work: str) -> tuple:
+    """The stages' outputs under ``--work``: the corpus, the dataset, the encodings and the VAE."""
+    return (os.path.join(work, "audio"), os.path.join(work, "ds"), os.path.join(work, "encodings.p"),
+            os.path.join(work, "vae"))
+
+
+def vae_argv(recipe: Recipe, a, ds_dir: str, out: str) -> list:
+    """``training.train_vae``'s flags for the recipe, the VAE written to ``out``."""
+    return ["-d", ds_dir, *recipe.vae_batch, "--max_steps", str(a.vae_steps), "--disc_start", str(a.disc_start),
+            "--hf_checkpoint_dir", out, "--seed", "0", "--base_channels", str(a.vae_base_channels), "--ch_mult",
+            a.vae_ch_mult, "--norm_num_groups", str(a.vae_norm_num_groups), "--device", a.device]
+
+
+def unet_argv(recipe: Recipe, a, ds_dir: str, vae_dir: str, enc_path: str, output: str) -> list:
+    """The UNet trainer's flags for the recipe, over the VAE in ``vae_dir``, the pipeline written to ``output``."""
+    conditioning = ("--encodings", enc_path) if recipe.conditional else ()
+    start = ("--from_pretrained", a.from_pretrained) if a.from_pretrained else ()
+    return ["--dataset", ds_dir, "--vae", vae_dir, *conditioning, "--output_dir", output, *recipe.unet_batch,
+            "--scheduler", "ddim", "--mixed_precision", "bf16", "--max_steps", str(a.unet_steps), "--num_epochs",
+            "1000", "--lr_warmup_steps", str(a.unet_warmup), "--save_images_epochs", "100000",
+            "--save_model_epochs", "100000", "--seed", "0", "--device", a.device, *start]
+
+
+def record_of(recipe: Recipe, a, output: str, ds_dir: str, enc_path: str, device) -> tuple:
+    """The recipe's fidelity record of the pipeline in ``output``, and its UNet's dtype."""
+    from ..data.dataset import load_encodings
+    from ..pipelines.pipeline import AudioDiffusionPipeline
+
+    pipe = AudioDiffusionPipeline.from_pretrained(output, fused_groupnorm=True, device=device)
+    record = fidelity_record(pipe, ds_dir, load_encodings(enc_path) if recipe.conditional else None,
+                             batch=a.eval_batch, steps=a.eval_steps)
+    return record, pipe.unet.config.dtype
+
+
+def differing_tensors(output_a: str, output_b: str) -> list:
+    """The tensors of two trained pipelines' saved UNet and VAE that are not
+    bitwise equal, as "module/name" (a key only one of them holds counts too)."""
+    from ..utils.diffusers_io import load_state_dict
+
+    differ = []
+    for part in ("unet", "vqvae"):
+        a, b = (load_state_dict(os.path.join(out, part)) for out in (output_a, output_b))
+        differ += [f"{part}/{k}" for k in sorted(a.keys() | b.keys())
+                   if k not in a or k not in b or a[k].dtype != b[k].dtype or not torch.equal(a[k], b[k])]
+    return differ
+
+
 def main(recipe: Recipe, argv=None) -> dict:
     a = parse_args(recipe, argv)
     from ..bench import main as bench_main
-    from ..data.dataset import load_encodings
     from ..data.prepare import encode_slices, write_png_dataset
     from ..mel import Mel
-    from ..pipelines.pipeline import AudioDiffusionPipeline
     from ..training.__main__ import main as unet_main
     from ..training.train_vae import main as vae_main
     from ..utils import diffusers_io
@@ -201,8 +246,7 @@ def main(recipe: Recipe, argv=None) -> dict:
 
     device = resolve_device(a.device)  # raises without a card unless --device cpu
     os.makedirs(a.work, exist_ok=True)
-    audio_dir, ds_dir = os.path.join(a.work, "audio"), os.path.join(a.work, "ds")
-    enc_path, vae_dir = os.path.join(a.work, "encodings.p"), os.path.join(a.work, "vae")
+    audio_dir, ds_dir, enc_path, vae_dir = work_paths(a.work)
     index_path = os.path.join(ds_dir, "slices.json")  # the writer's {png: wav}, which the encodings read
     stages, launches = {}, {}
 
@@ -248,23 +292,14 @@ def main(recipe: Recipe, argv=None) -> dict:
 
     def vae():
         tmp = _fresh(vae_dir)
-        r = vae_main(["-d", ds_dir, *recipe.vae_batch, "--max_steps", str(a.vae_steps), "--disc_start",
-                      str(a.disc_start), "--hf_checkpoint_dir", tmp, "--seed", "0", "--base_channels",
-                      str(a.vae_base_channels), "--ch_mult", a.vae_ch_mult, "--norm_num_groups",
-                      str(a.vae_norm_num_groups), "--device", a.device])
+        r = vae_main(vae_argv(recipe, a, ds_dir, tmp))
         os.replace(tmp, vae_dir)
         logged = r["logged_losses"]
         return {"steps": r["steps"], "train_seconds": r["seconds"], "loss_first": logged[0][1] if logged else None,
                 "loss_last": logged[-1][1] if logged else None, "logged_losses": logged}
 
     def unet():
-        conditioning = ("--encodings", enc_path) if recipe.conditional else ()
-        start = ("--from_pretrained", a.from_pretrained) if a.from_pretrained else ()
-        r = unet_main(["--dataset", ds_dir, "--vae", vae_dir, *conditioning, "--output_dir", a.output,
-                       *recipe.unet_batch, "--scheduler", "ddim", "--mixed_precision", "bf16", "--max_steps",
-                       str(a.unet_steps), "--num_epochs", "1000", "--lr_warmup_steps", str(a.unet_warmup),
-                       "--save_images_epochs", "100000", "--save_model_epochs", "100000", "--seed", "0",
-                       "--device", a.device, *start])
+        r = unet_main(unet_argv(recipe, a, ds_dir, vae_dir, enc_path, a.output))
         return {"steps": r["steps"], "train_seconds": r["seconds"], **loss_summary(r["losses"])}
 
     def complete_vae() -> bool:
@@ -290,10 +325,9 @@ def main(recipe: Recipe, argv=None) -> dict:
     record = {}
 
     def fidelity():
-        pipe = AudioDiffusionPipeline.from_pretrained(a.output, fused_groupnorm=True, device=device)
-        record.update(fidelity_record(pipe, ds_dir, load_encodings(enc_path) if recipe.conditional else None,
-                                      batch=a.eval_batch, steps=a.eval_steps))
-        return {"dtype": pipe.unet.config.dtype}
+        got, dtype = record_of(recipe, a, a.output, ds_dir, enc_path, device)
+        record.update(got)
+        return {"dtype": dtype}
 
     stage("bench", False, bench)
     stage("fidelity", False, fidelity)

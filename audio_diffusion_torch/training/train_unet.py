@@ -60,6 +60,15 @@ from ..models.ema import EMA
 from ..models.vae import DiagonalGaussian
 from ..parallel.mesh import batch_slice, fsdp_sharding_for, is_sharded, local, world
 from ..pipelines.pipeline import LATENT_SCALE
+from ..utils.flag_window import attribute_window
+
+# Every training step of the port (this module's, and train_vae's generator and discriminator steps) runs with
+# cuDNN restricted to its deterministic algorithms, so that a run repeats itself bitwise on the card as the JAX
+# trainers do on theirs. Left free, cuDNN's heuristics pick a data-gradient convolution for the PatchGAN's first
+# layer that sums in a run-dependent order (scripts/repeat_probe.py), and the choice is made per shape. The flag is
+# one for the whole process: it is set only while a step runs and put back after (``with repeatable():``). The
+# conditional UNet's attention backward has its own window (ops/attention.py::SDPA).
+repeatable = attribute_window(torch.backends.cudnn, "deterministic", True)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -340,6 +349,7 @@ def make_train_step(cfg: TrainConfig, unet, scheduler, vae=None, conditional: bo
     (at the new step) as a float. Draws: the module docstring. With
     ``record_events`` on a CUDA device each call appends CUDA events (start,
     after the backward passes, after the optimizer and EMA) to ``step.events``.
+    A step runs inside :data:`repeatable`.
 
     ``unet`` may be what :func:`wrap_unet` made: then ``images`` and
     ``encodings`` are this rank's rows of the microbatch axis, the injected
@@ -369,6 +379,7 @@ def make_train_step(cfg: TrainConfig, unet, scheduler, vae=None, conditional: bo
             return (*vae.config.latent_hw(*images.shape[2:4]), vae.config.latent_channels)
         return tuple(images.shape[2:])
 
+    @repeatable()
     def train_step(state: TrainState, images, encodings=None, *, seed: int = 0, timesteps=None, noise=None,
                    posterior_eps=None):
         images = torch.as_tensor(images, dtype=torch.float32, device=device)

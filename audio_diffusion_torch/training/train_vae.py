@@ -40,7 +40,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..models.unet2d import init_flax_defaults
-from .train_unet import Adam, AdamState, step_generator
+from .train_unet import Adam, AdamState, repeatable, step_generator
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,7 +137,10 @@ def make_vae_train_steps(cfg: VAETrainConfig, vae, disc: PatchDiscriminator):
     """Returns ``(gen_step, disc_step)``; each is ``state, metrics =
     step(state, images, *, seed=0, posterior_eps=None)`` with ``images``
     (B, H, W, C) or (accum, micro, H, W, C): gradients average over the
-    microbatches. Alternate them per batch (train_vae.py:119-274)."""
+    microbatches. Alternate them per batch (train_vae.py:119-274). Each runs
+    inside ``train_unet.repeatable``: on the card the generator step's
+    gradient through the PatchGAN repeats itself bitwise only with cuDNN's
+    deterministic algorithms."""
     if cfg.perceptual_kind not in ("pyramid", "ssim", "lpips_rf", "none"):
         raise ValueError(f"perceptual_kind={cfg.perceptual_kind!r}: expected 'pyramid' (avg-pool pyramid L1), "
                          "'ssim' (structural dissimilarity), 'lpips_rf' (LPIPS over fixed random conv features), "
@@ -181,6 +184,7 @@ def make_vae_train_steps(cfg: VAETrainConfig, vae, disc: PatchDiscriminator):
         torch._foreach_add_(acc, list(grads))
         return acc
 
+    @repeatable()
     def gen_step(state: VAETrainState, images, *, seed: int = 0, posterior_eps=None):
         disc_factor = 1.0 if state.step >= cfg.disc_start else 0.0
         images, eps = draws(state, images, seed, posterior_eps)
@@ -209,6 +213,7 @@ def make_vae_train_steps(cfg: VAETrainConfig, vae, disc: PatchDiscriminator):
         state.step += 1
         return state, {k: v / accum for k, v in parts_sum.items()}
 
+    @repeatable()
     def disc_step(state: VAETrainState, images, *, seed: int = 0, posterior_eps=None):
         disc_factor = 1.0 if state.step >= cfg.disc_start else 0.0
         images, eps = draws(state, images, seed, posterior_eps)

@@ -7,41 +7,20 @@ contract (a request's spectrogram bitwise the same alone or batched, at eta
 0) therefore needs cuDNN off while a batch runs.
 
 ``torch.backends.cudnn.enabled`` is one flag for the whole process, so the
-window is kept here, once: a lock and a count of the windows open. The first
-window to open saves the flag and turns cuDNN off; the last to close puts
-the saved value back. Windows may overlap in any order (two batchers, a
-batcher beside a sharded call) and the flag stays off while any is open.
-Every other thread of the process sees cuDNN off meanwhile: a plain call of
-the pipeline made then runs without cuDNN (its fused program is the one
-captured with cuDNN off: the flag is part of its signature).
+window is one :class:`.flag_window.FlagWindow`: the first window to open
+saves the flag and turns cuDNN off; the last to close puts the saved value
+back. Windows may overlap in any order (two batchers, a batcher beside a
+sharded call) and the flag stays off while any is open. Every other thread
+of the process sees cuDNN off meanwhile: a plain call of the pipeline made
+then runs without cuDNN (its fused program is the one captured with cuDNN
+off: the flag is part of its signature).
 """
 
 from __future__ import annotations
 
-import contextlib
-import threading
-
 import torch
 
-_lock = threading.Lock()
-_open = 0  # windows open now
-_saved = None  # the cuDNN flag before the first of them opened
+from .flag_window import attribute_window
 
-
-@contextlib.contextmanager
-def window():
-    """Run the body with cuDNN off; nests and overlaps across threads."""
-    global _open, _saved
-    with _lock:
-        if _open == 0:
-            _saved = torch.backends.cudnn.enabled
-        _open += 1
-        torch.backends.cudnn.enabled = False
-    try:
-        yield
-    finally:
-        with _lock:
-            _open -= 1
-            if _open == 0:
-                torch.backends.cudnn.enabled = _saved
-                _saved = None
+# ``with window():`` runs the body with cuDNN off; nests and overlaps across threads
+window = attribute_window(torch.backends.cudnn, "enabled", False)

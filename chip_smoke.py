@@ -59,7 +59,7 @@ Phases, one line each (plus detail lines):
              cuDNN off); /healthz figures; warmup captures every program the
              traffic replays (no capture after it). Then the same pipeline
              reloaded through ``make_server(dtype="float32")``: seed 1000 at
-             tiers 32, 8 and 1 bitwise one spectrogram. [tier] (the UNet
+             tiers 16 and 1 bitwise one spectrogram. [tier] (the UNet
              and VAE called op by op, in bf16 and in f32): every torch
              call of a batch-8 and a batch-32 UNet forward and VAE decode
              re-run on row 0 alone (the attention blocks in one call, as
@@ -147,8 +147,10 @@ Phases, one line each (plus detail lines):
  14. dp      the [train] setup data parallel, one process per rank through
              ``run_training`` (this script re-run with --dp-rank): with 2 or more
              cards NCCL over min(count, 4) ranks, DDP and then FSDP; on one card
-             DDP over 2 ranks on cuda:0 with gloo, beside DDP and FSDP at world 1
-             over NCCL (the two groups run side by side). 6 steps, then resumed to 8: every rank's losses bitwise
+             DDP over 2 ranks on cuda:0 with gloo, beside DDP and then FSDP at
+             world 1 over NCCL. Both groups run side by side with each
+             other and with [shard], [encoder-train], [cond-train] and
+             [rebuild]'s processes. 6 steps, then resumed to 8: every rank's losses bitwise
              the same, rank 0 alone saves, step 1 within 1e-3 of a one-process
              run, 6 x accum flash_mha launches and FlashMHA backwards per step
              on every rank; steps/s, the all-reduce of the gradient's bytes,
@@ -167,10 +169,10 @@ Phases, one line each (plus detail lines):
              bitwise the original's, 64 GroupNorm+SiLU and 6 attention
              launches per denoise step; bytes and walls of each save and load
  18. cond-train  (group interop) the conditional recipe (scripts.cond_selectivity_evidence)
-             at full width with 24 VAE and 100 UNet steps: the loss falls,
+             at full width with 24 VAE and 40 UNet steps: the loss falls,
              steps/s, peak memory, the selectivity, 44 GroupNorm+SiLU
              launches per UNet forward of its evaluation and no attention
- 19. rebuild  (group interop; run last) both pinned-seed rebuild recipes
+ 19. rebuild  (group interop) both pinned-seed rebuild recipes
              (scripts.rebuild_latent256 and rebuild_latent512) at full width,
              their corpus and steps cut (REBUILD_CUTS): every stage on the
              card, the bf16 bench line's gates with the trained contrast
@@ -179,7 +181,14 @@ Phases, one line each (plus detail lines):
              latent-256 step; sampling 64 / 44 GroupNorm+SiLU and 6 / 0
              attention launches per forward), a batch-2 trained request of
              each against the plain versions (uint8 within 1), and bench's
-             trained-weights side run over the cut latent-256 artifact
+             trained-weights side run over the cut latent-256 artifact. After
+             each recipe's run its VAE and UNet stages train a second time
+             over the same corpus, dataset and encodings into a second
+             output: every saved tensor bitwise the first's and the same
+             fidelity record, or the run fails. Each recipe runs in a process
+             of its own (this script re-run with --side NAME), side by side
+             with the other, [dp]'s ranks, [shard], [encoder-train] and
+             [cond-train]
 Then one JSON line with each kernel's launches (``launches``: the [main]
 requests; ``staged_launches``: the [staged] requests' staged replays;
 ``encode_launches``: [staged]'s replayed ``encode`` calls;
@@ -274,7 +283,7 @@ ENCODER_TRAIN_BATCH = 16
 NATIVE_BATCH, NATIVE_SEED = 8, 301
 NATIVE_LAYOUTS = ("diffusers", "native", "safetensors")
 # [cond-train]: the recipe at full width with its 1,200 VAE and 6,000 UNet steps cut to fit the run's time
-COND_TRAIN_VAE_STEPS, COND_TRAIN_UNET_STEPS = 24, 100
+COND_TRAIN_VAE_STEPS, COND_TRAIN_UNET_STEPS = 24, 40
 COND_TRAIN_CLASSES, COND_TRAIN_EVAL_BATCH = 4, 8
 # [rebuild]: both rebuild recipes at full width, cut to fit the run's time: 8 files of 3 slices (the recipes: 24 of
 # 2), their VAE steps (1,400, the discriminator from 600) and UNet steps (1,000, 100 warm-up) cut, the bf16 bench
@@ -1272,13 +1281,15 @@ def phase_serve(pipe, card: str, save_dir: Path):
     return launches
 
 
-F32_SERVE_TIERS = (32, SERVE_TIER, 1)  # [serve] in f32: one batch at each, seed 1000 among other companions
+# [serve] in f32: one batch at each, seed 1000 among other companions; the largest holds two row blocks of the f32
+# attention (tier 32's capture alone took ~28 s of the run's time limit; [tier] holds f32 rows at batches 8 and 32)
+F32_SERVE_TIERS = (16, 1)
 
 
 def phase_serve_f32(pipe, card: str) -> None:
     """[serve] in f32 (Queue 3 item 1): the [main] pipeline saved and reloaded
     through ``make_server(dtype="float32", fused_groupnorm=True)``, tiers up to
-    32, eta 0. Seed 1000 sent in one batch of each of F32_SERVE_TIERS, with
+    F32_SERVE_TIERS[0], eta 0. Seed 1000 sent in one batch of each of F32_SERVE_TIERS, with
     other companions each time, must give one spectrogram, bitwise. Every
     batch launches 64 GroupNorm+SiLU kernels per denoise step and 6 attention
     kernels per denoise step for each block of ROW_BLOCK rows (f32 attention
@@ -1295,7 +1306,8 @@ def phase_serve_f32(pipe, card: str) -> None:
 
     with tempfile.TemporaryDirectory() as d:
         pipe.save_pretrained(d)
-        server = make_server(d, dtype="float32", fused_groupnorm=True, device="cuda", port=0, max_batch=32,
+        server = make_server(d, dtype="float32", fused_groupnorm=True, device="cuda", port=0,
+                             max_batch=F32_SERVE_TIERS[0],
                              max_wait_ms=2000, steps=STEPS)
     served = server.batcher.pipe
     if (served.unet.config.dtype, served.vqvae.config.dtype) != ("float32", "float32"):
@@ -3293,57 +3305,24 @@ def dp_rank(rank: int, world: int, init: str, device: str, backend: str, shardin
         out["allreduce_mib"] = buf.numel() * 4 / 2**20
     finally:
         dist.destroy_process_group()
+    out["ended"] = time.time()
     (root / f"{tag}_{rank}.json").write_text(json.dumps(out))
 
 
-def _dp_launch(root: Path, plan: list) -> dict:
-    """Run each group of ``plan`` ((tag, world, backend, devices, shardings)),
-    side by side: ``world`` ranks of ``dp_rank`` as processes each. Returns
-    {tag: (the ranks' JSON reports, seconds from the common start until the
-    group's last rank ended)}."""
-    t0 = time.perf_counter()
-    groups = {}
-    for tag, world, backend, devices, shardings in plan:
-        logs = [open(root / f"{tag}_{rank}.log", "w") for rank in range(world)]
-        groups[tag] = logs, [subprocess.Popen(
-            [sys.executable, str(Path(__file__).resolve()), "--dp-rank", str(rank), "--dp-world", str(world),
-             "--dp-init", f"file://{root / f'rendezvous_{tag}'}", "--dp-device", devices[rank], "--dp-backend",
-             backend, "--dp-shardings", ",".join(shardings), "--dp-root", str(root), "--dp-tag", tag],
-            stdout=log, stderr=subprocess.STDOUT) for rank, log in enumerate(logs)]
-    walls, failed = {}, []
-    try:
-        while len(walls) < len(groups) and not failed:  # a rank that fails ends the phase: its peers would wait
-            if time.perf_counter() - t0 > DP_RANK_TIMEOUT_S:
-                fail(f"[dp] a rank did not finish within {DP_RANK_TIMEOUT_S} s")
-            for tag, (_, procs) in groups.items():
-                failed += [(tag, rank, p.returncode) for rank, p in enumerate(procs) if p.poll() not in (None, 0)]
-                if tag not in walls and all(p.poll() is not None for p in procs):
-                    walls[tag] = time.perf_counter() - t0
-            time.sleep(0.1)
-    finally:
-        for logs, procs in groups.values():
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-            for log in logs:
-                log.close()
-    for tag, rank, code in failed[:1]:
-        print((root / f"{tag}_{rank}.log").read_text()[-6000:], file=sys.stderr)
-        fail(f"[dp] {tag}: rank {rank} exited {code}")
-    out = {}
-    for tag, (_, procs) in groups.items():
-        out[tag] = [json.loads((root / f"{tag}_{rank}.json").read_text()) for rank in range(len(procs))], walls[tag]
-    return out
+def _dp_run(tag: str, shardings) -> str:
+    """The name of one [dp] group's files and output: its tag and shardings."""
+    return f"{tag}-{'+'.join(shardings)}"
 
 
-def phase_dp(card: str, root: Path) -> dict:
-    """Latent-256 UNet training at full width, data parallel: one process per
-    rank through ``run_training`` (module docstring, phase 14). Returns each
-    rank's kernel launches."""
+@contextlib.contextmanager
+def dp_processes(card: str, root: Path):
+    """[dp] started (module docstring, phase 14): the data and the VAE
+    written, then every group of ranks as processes of their own
+    (``dp_rank``), side by side with each other and with what this process
+    runs meanwhile, and here the one-process run of step 1 that the ranks
+    take first. Yields what dp_finish reads; kills any rank left at the exit."""
     import shutil
 
-    import numpy as np
     import torch
 
     from audio_diffusion_torch.training import RunConfig, TrainConfig, run_training
@@ -3352,31 +3331,76 @@ def phase_dp(card: str, root: Path) -> dict:
     t0 = time.perf_counter()
     write_training_data(root)
     save_training_vae(root)
-    # the one-process run of step 1, the same step the ranks take first
-    ref = run_training(RunConfig(dataset=str(root / "slices"), output_dir=str(root / "model_ref"),
-                                 train_batch_size=TRAIN_MICRO, vae=str(root / "vae"), mixed_precision="bf16",
-                                 max_steps=1, save_images_epochs=1000, device="cuda"),
-                       TrainConfig(learning_rate=TRAIN_LR, lr_warmup_steps=0, gradient_accumulation_steps=TRAIN_ACCUM))
-    ref_loss = ref["losses"][0]
-    shutil.rmtree(root / "model_ref")
-    print(f"[dp] data, VAE and the one-process step 1 (loss {ref_loss:.6f}) in {time.perf_counter() - t0:.2f} s; "
-          f"{n} card(s)")
     if n >= 2:
         w = min(n, DP_MAX_RANKS)
         plan = [("nccl", w, "nccl", [f"cuda:{i}" for i in range(w)], ("replicated", "fsdp"))]
     else:  # NCCL refuses two ranks on one card; gloo carries DDP's all-reduce, not FSDP's collectives
-        # the two groups run side by side on the card: their times include each other's load
+        # (NCCL's DDP and FSDP in one process: a fourth process beside [rebuild]'s brought the card within
+        # 0.7 GiB of its memory)
         plan = [("gloo", 2, "gloo", ["cuda:0", "cuda:0"], ("replicated",)),
                 ("nccl1", 1, "nccl", ["cuda:0"], ("replicated", "fsdp"))]
+    groups = {}
+    try:
+        started = time.time()
+        for tag, world, backend, devices, shardings in plan:
+            run = _dp_run(tag, shardings)
+            logs = [open(root / f"{run}_{rank}.log", "w") for rank in range(world)]
+            groups[run] = logs, [subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--dp-rank", str(rank), "--dp-world", str(world),
+                 "--dp-init", f"file://{root / f'rendezvous_{run}'}", "--dp-device", devices[rank], "--dp-backend",
+                 backend, "--dp-shardings", ",".join(shardings), "--dp-root", str(root), "--dp-tag", run],
+                stdout=log, stderr=subprocess.STDOUT) for rank, log in enumerate(logs)]
+        ref = run_training(RunConfig(dataset=str(root / "slices"), output_dir=str(root / "model_ref"),
+                                     train_batch_size=TRAIN_MICRO, vae=str(root / "vae"), mixed_precision="bf16",
+                                     max_steps=1, save_images_epochs=1000, device="cuda"),
+                           TrainConfig(learning_rate=TRAIN_LR, lr_warmup_steps=0,
+                                       gradient_accumulation_steps=TRAIN_ACCUM))
+        shutil.rmtree(root / "model_ref")
+        print(f"[dp] data, VAE and the one-process step 1 (loss {ref['losses'][0]:.6f}) in "
+              f"{time.perf_counter() - t0:.2f} s; {n} card(s); {len(plan)} group(s) of ranks started")
+        yield {"root": root, "plan": plan, "groups": groups, "started": started, "ref_loss": ref["losses"][0]}
+    finally:
+        for logs, procs in groups.values():
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+            for log in logs:
+                log.close()
+
+
+def dp_finish(run: dict, card: str) -> dict:
+    """Waits for [dp]'s ranks and holds what each wrote to the checks of
+    phase 14. Returns each rank's kernel launches."""
+    import shutil
+
+    import numpy as np
+
+    root, plan, groups, ref_loss = run["root"], run["plan"], run["groups"], run["ref_loss"]
+    while True:  # a rank that fails ends the phase: its peers would wait
+        failed = [(name, rank, p.returncode) for name, (_, procs) in groups.items() for rank, p in enumerate(procs)
+                  if p.poll() not in (None, 0)]
+        if failed or all(p.poll() is not None for _, procs in groups.values() for p in procs):
+            break
+        if time.time() - run["started"] > DP_RANK_TIMEOUT_S:
+            fail(f"[dp] a rank did not finish within {DP_RANK_TIMEOUT_S} s")
+        time.sleep(0.1)
+    for name, rank, code in failed[:1]:
+        print((root / f"{name}_{rank}.log").read_text()[-6000:], file=sys.stderr)
+        fail(f"[dp] {name}: rank {rank} exited {code}")
     launches, peaks = {}, {}
     want = {"flash_mha": TRAIN_ATTN * TRAIN_ACCUM * DP_RESUME_TO,
             "FlashMHA.backward": TRAIN_ATTN * TRAIN_ACCUM * DP_RESUME_TO, "group_norm_silu": 0}
-    ran = _dp_launch(root, plan)
-    beside = f" (side by side with {', '.join(t for t, *_ in plan[1:])})" if len(plan) > 1 else ""
+    if len(plan) > 1:
+        print(f"[dp] the groups {[_dp_run(t, s) for t, _, _, _, s in plan]} ran side by side on the card, beside "
+              f"[shard], [encoder-train], [cond-train] and [rebuild]'s processes: their times include each "
+              f"other's load")
     for tag, world, backend, devices, shardings in plan:
-        reports, wall = ran[tag]
+        name = _dp_run(tag, shardings)
+        reports = [json.loads((root / f"{name}_{rank}.json").read_text()) for rank in range(world)]
+        wall = max(r["ended"] for r in reports) - run["started"]
         print(f"[dp] {tag}: backend {backend}, world {world}, devices {devices}; {wall:.2f} s for "
-              f"{'+'.join(shardings)}{beside if tag == plan[0][0] else ''}; all-reduce of the gradient ({reports[0]['allreduce_mib']:.1f} MiB f32, "
+              f"{'+'.join(shardings)}; all-reduce of the gradient ({reports[0]['allreduce_mib']:.1f} MiB f32, "
               f"host wall) {reports[0]['allreduce_ms']:.4f} ms  [{card}]")
         for sharding in shardings:
             runs = [r["configs"][sharding] for r in reports]
@@ -3409,8 +3433,7 @@ def phase_dp(card: str, root: Path) -> dict:
                   f"{first['optimizer_ema_ms']:.4f} ms (CUDA events); peak allocated in a step per rank "
                   f"{[round(r['peak_gib'], 4) for r in runs]} GiB; device idle per rank (2 profiled steps) "
                   f"{[round(r['idle_pct'], 2) for r in runs]}%  [{card}]")
-        for sharding in shardings:
-            shutil.rmtree(root / f"model_{tag}_{sharding}", ignore_errors=True)
+            shutil.rmtree(root / f"model_{name}_{sharding}", ignore_errors=True)
     fsdp = {k: v for k, v in peaks.items() if k.endswith("/fsdp")}
     print("[dp] peak allocated in a step per rank, FSDP beside DDP: "
           + "; ".join(f"{k} {[round(x, 4) for x in v]} GiB" for k, v in peaks.items())
@@ -3762,8 +3785,43 @@ def trained_against_plain(out: str, name: str, encoding) -> dict:
             "std": float(kernels.std())}
 
 
-def phase_rebuild(card: str, root: Path) -> dict:
-    """Both pinned-seed rebuild recipes (``scripts.rebuild_latent256`` and
+def train_again(recipe, r: dict, argv: list, out: Path) -> float:
+    """The recipe's VAE and UNet stages trained a second time, over the
+    corpus, dataset and encodings of its run ``r``, into ``out`` (the VAE into
+    ``out``-vae); fails unless every tensor of both saved modules is bitwise
+    the first run's and the fidelity record is the same. Returns its seconds."""
+    import io
+
+    import torch
+
+    from audio_diffusion_torch.scripts import rebuild
+    from audio_diffusion_torch.training.__main__ import main as unet_main
+    from audio_diffusion_torch.training.train_vae import main as vae_main
+
+    t0 = time.perf_counter()
+    a = rebuild.parse_args(recipe, ["--output", str(out), "--work", r["work"], *argv])
+    _, ds_dir, enc_path, _ = rebuild.work_paths(a.work)
+    vae_dir = str(out) + "-vae"
+    with contextlib.redirect_stdout(io.StringIO()), unimportable("datasets", "pandas"):
+        vae_main(rebuild.vae_argv(recipe, a, ds_dir, vae_dir))
+        unet_main(rebuild.unet_argv(recipe, a, ds_dir, vae_dir, enc_path, a.output))
+        record, _ = rebuild.record_of(recipe, a, a.output, ds_dir, enc_path, a.device)
+    differ = rebuild.differing_tensors(r["output"], a.output)
+    if differ:
+        fail(f"[rebuild] {recipe.name}: trained a second time, {len(differ)} saved tensors differ from the first "
+             f"run's: {differ[:6]}")
+    if record != r["fidelity"]:
+        fail(f"[rebuild] {recipe.name}: trained a second time, the fidelity record {record} differs from the first "
+             f"run's {r['fidelity']}")
+    torch.cuda.empty_cache()
+    return time.perf_counter() - t0
+
+
+REBUILD_RECIPES = ("latent256", "conditional_latent512")
+
+
+def rebuild_recipe(recipe, card: str, root: Path) -> tuple:
+    """One pinned-seed rebuild recipe (``scripts.rebuild_latent256`` or
     ``scripts.rebuild_latent512``) at full width, cut (REBUILD_CUTS), with
     ``datasets`` and ``pandas`` made unimportable: every stage runs on the
     card, the bf16 bench line passes its gates with the trained contrast
@@ -3773,76 +3831,84 @@ def phase_rebuild(card: str, root: Path) -> dict:
     kernel; each bench request and each sampling step 64 / 44 GroupNorm+SiLU
     and 6 / 0 attention launches per forward, f32 attention once per block of
     8 rows; the record's first call warms its denoise stage up, so its steps
-    run twice). Then a batch-2 trained request of each artifact against the
-    plain versions, and bench's trained-weights side run over the cut
-    latent-256 artifact (``bench.TRAINED_256_DIR`` pointed at it, so nothing
-    lands in the checkout's ``models/``). Returns every launch count."""
+    run twice). Then a batch-2 trained request of the artifact against the
+    plain versions, and its VAE and UNet trained a second time (train_again).
+    Returns (every launch count by stage, the second training's seconds)."""
     import io
 
     import numpy as np
-    import torch
 
-    from audio_diffusion_torch import bench
     from audio_diffusion_torch.data.dataset import load_encodings
     from audio_diffusion_torch.models import unet2d
     from audio_diffusion_torch.scripts import rebuild
-    from audio_diffusion_torch.scripts.rebuild import launch_counts
 
-    t_phase = time.perf_counter()
-    out = {}
-    for recipe in (rebuild.LATENT_256, rebuild.CONDITIONAL_512):
-        name = recipe.name
-        buf = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(buf), unimportable("datasets", "pandas"):
-            r = rebuild.main(recipe, ["--output", str(root / name), *REBUILD_CORPUS, *REBUILD_CUTS[name],
-                                      *REBUILD_BENCH])
-        wall = time.perf_counter() - t0
-        if json.loads(buf.getvalue().strip().splitlines()[-1]) != json.loads(json.dumps(r)):
-            fail(f"[rebuild] {name}: the last line printed is not the recipe's result")
-        st, lc = r["stages"], r["launches"]
-        norms, attn = REBUILD_NORMS[name], REBUILD_ATTN[name]
-        unet_steps = int(REBUILD_CUTS[name][REBUILD_CUTS[name].index("--unet_steps") + 1])
-        want = {"corpus": (0, 0, 0), "dataset": (0, 0, 0), "encodings": (0, 0, 0), "vae": (0, 0, 0),
-                "unet": (0, attn * unet_steps, attn * unet_steps),
-                "fidelity": (2 * REBUILD_STEPS * norms, 2 * REBUILD_STEPS * attn, 0)}
-        for stage, counts in lc.items():
-            got = (counts["group_norm_silu"], counts["flash_mha"], counts["FlashMHA.backward"])
-            if stage in want and got != want[stage]:
-                fail(f"[rebuild] {name} {stage}: launches {got}, expected {want[stage]}")
-        if not (lc["bench"]["group_norm_silu"] > 0 and (lc["bench"]["flash_mha"] > 0) == (attn > 0)):
-            fail(f"[rebuild] {name} bench: launches {lc['bench']}")
-        for line in r["bench"]:
-            per, cfg = line["launches"]["per_request"], line["config"]
-            # f32 attention blocks run on blocks of ROW_BLOCK rows on the card (models/unet2d.py::in_row_blocks)
-            blocks = -(-cfg["batch"] // unet2d.ROW_BLOCK) if cfg["dtype"] == "float32" else 1
-            if per != {"group_norm_silu": REBUILD_STEPS * norms, "flash_mha": REBUILD_STEPS * attn * blocks}:
-                fail(f"[rebuild] {name} bench {line['config']['dtype']}: {per} launches per request")
-            _on_the_card(line, f"{name} bench")
-        if not (all(v < REBUILD_NN_BOUND for v in r["fidelity"]["sample_nn_mae_uint8"])
-                and r["fidelity"]["sample_std_uint8"] > 5):
-            fail(f"[rebuild] {name}: fidelity record {r['fidelity']} (each sample's NN MAE under "
-                 f"{REBUILD_NN_BOUND}, the samples' std over 5)")
-        if st["unet"]["steps"] != unet_steps or not st["unet"]["loss_last_mean"] < st["unet"]["loss_first_mean"]:
-            fail(f"[rebuild] {name}: the UNet's loss did not fall: {st['unet']}")
-        enc = None
-        if recipe.conditional:
-            encs = load_encodings(str(Path(r["work"]) / "encodings.p"))
-            enc = np.stack(list({v.tobytes(): v for v in encs.values()}.values())[:REBUILD_PLAIN[0]])
-        plain = trained_against_plain(str(root / name), name, enc)
-        out[name] = {**lc, "plain_check": plain["launches"]}
-        timing = "; ".join(f"{k} {v['seconds']:.2f} s" + (f" ({v['steps']} steps)" if "steps" in v else "")
-                           + f", peak {v['peak_allocated_gib']:.4f} GiB" for k, v in st.items())
-        print(f"[rebuild] {name} at full width, cut ({' '.join(REBUILD_CORPUS + REBUILD_CUTS[name])}): {timing}; "
-              f"recipe {wall:.2f} s; VAE loss {st['vae']['loss_first']:.4f} -> {st['vae']['loss_last']:.4f}, UNet "
-              f"mean of the first / last {st['unet']['loss_window']} steps {st['unet']['loss_first_mean']:.4f} -> "
-              f"{st['unet']['loss_last_mean']:.4f}  [{card}]")
-        for line in r["bench"]:
-            print(f"[rebuild] {name} bench {line['config']['dtype']} b{line['config']['batch']}: {line['value']:.4f} "
-                  f"{line['unit']}, gates {line['fidelity']}, launches per request {line['launches']['per_request']}")
-        print(f"[rebuild] {name} fidelity record: {r['fidelity']}; the trained b{REBUILD_PLAIN[0]} f32 request with "
-              f"the kernels vs the plain versions: max {plain['max_uint8_diff']} uint8 on "
-              f"{plain['differing_share']:.6f} of the pixels (std {plain['std']:.4f}); launches by stage {lc}")
+    name = recipe.name
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf), unimportable("datasets", "pandas"):
+        r = rebuild.main(recipe, ["--output", str(root / name), *REBUILD_CORPUS, *REBUILD_CUTS[name],
+                                  *REBUILD_BENCH])
+    wall = time.perf_counter() - t0
+    if json.loads(buf.getvalue().strip().splitlines()[-1]) != json.loads(json.dumps(r)):
+        fail(f"[rebuild] {name}: the last line printed is not the recipe's result")
+    st, lc = r["stages"], r["launches"]
+    norms, attn = REBUILD_NORMS[name], REBUILD_ATTN[name]
+    unet_steps = int(REBUILD_CUTS[name][REBUILD_CUTS[name].index("--unet_steps") + 1])
+    want = {"corpus": (0, 0, 0), "dataset": (0, 0, 0), "encodings": (0, 0, 0), "vae": (0, 0, 0),
+            "unet": (0, attn * unet_steps, attn * unet_steps),
+            "fidelity": (2 * REBUILD_STEPS * norms, 2 * REBUILD_STEPS * attn, 0)}
+    for stage, counts in lc.items():
+        got = (counts["group_norm_silu"], counts["flash_mha"], counts["FlashMHA.backward"])
+        if stage in want and got != want[stage]:
+            fail(f"[rebuild] {name} {stage}: launches {got}, expected {want[stage]}")
+    if not (lc["bench"]["group_norm_silu"] > 0 and (lc["bench"]["flash_mha"] > 0) == (attn > 0)):
+        fail(f"[rebuild] {name} bench: launches {lc['bench']}")
+    for line in r["bench"]:
+        per, cfg = line["launches"]["per_request"], line["config"]
+        # f32 attention blocks run on blocks of ROW_BLOCK rows on the card (models/unet2d.py::in_row_blocks)
+        blocks = -(-cfg["batch"] // unet2d.ROW_BLOCK) if cfg["dtype"] == "float32" else 1
+        if per != {"group_norm_silu": REBUILD_STEPS * norms, "flash_mha": REBUILD_STEPS * attn * blocks}:
+            fail(f"[rebuild] {name} bench {line['config']['dtype']}: {per} launches per request")
+        _on_the_card(line, f"{name} bench")
+    if not (all(v < REBUILD_NN_BOUND for v in r["fidelity"]["sample_nn_mae_uint8"])
+            and r["fidelity"]["sample_std_uint8"] > 5):
+        fail(f"[rebuild] {name}: fidelity record {r['fidelity']} (each sample's NN MAE under "
+             f"{REBUILD_NN_BOUND}, the samples' std over 5)")
+    if st["unet"]["steps"] != unet_steps or not st["unet"]["loss_last_mean"] < st["unet"]["loss_first_mean"]:
+        fail(f"[rebuild] {name}: the UNet's loss did not fall: {st['unet']}")
+    enc = None
+    if recipe.conditional:
+        encs = load_encodings(str(Path(r["work"]) / "encodings.p"))
+        enc = np.stack(list({v.tobytes(): v for v in encs.values()}.values())[:REBUILD_PLAIN[0]])
+    plain = trained_against_plain(str(root / name), name, enc)
+    again = train_again(recipe, r, [*REBUILD_CORPUS, *REBUILD_CUTS[name], *REBUILD_BENCH], root / f"{name}-again")
+    timing = "; ".join(f"{k} {v['seconds']:.2f} s" + (f" ({v['steps']} steps)" if "steps" in v else "")
+                       + f", peak {v['peak_allocated_gib']:.4f} GiB" for k, v in st.items())
+    print(f"[rebuild] {name} at full width, cut ({' '.join(REBUILD_CORPUS + REBUILD_CUTS[name])}): {timing}; "
+          f"recipe {wall:.2f} s; VAE loss {st['vae']['loss_first']:.4f} -> {st['vae']['loss_last']:.4f}, UNet "
+          f"mean of the first / last {st['unet']['loss_window']} steps {st['unet']['loss_first_mean']:.4f} -> "
+          f"{st['unet']['loss_last_mean']:.4f}  [{card}]")
+    for line in r["bench"]:
+        print(f"[rebuild] {name} bench {line['config']['dtype']} b{line['config']['batch']}: {line['value']:.4f} "
+              f"{line['unit']}, gates {line['fidelity']}, launches per request {line['launches']['per_request']}")
+    print(f"[rebuild] {name} fidelity record: {r['fidelity']}; the trained b{REBUILD_PLAIN[0]} f32 request with "
+          f"the kernels vs the plain versions: max {plain['max_uint8_diff']} uint8 on "
+          f"{plain['differing_share']:.6f} of the pixels (std {plain['std']:.4f}); launches by stage {lc}")
+    print(f"[rebuild] {name} trained a second time in {again:.1f} s: every saved tensor bitwise the first run's, "
+          f"the same fidelity record  [{card}]")
+    return {**lc, "plain_check": plain["launches"]}, again
+
+
+def rebuild_side_run(card: str, root: Path) -> dict:
+    """bench's trained-weights side run over the cut latent-256 artifact in
+    ``root`` (``bench.TRAINED_256_DIR`` pointed at it, so nothing lands in
+    the checkout's ``models/``): every request REBUILD_STEPS steps of 64
+    GroupNorm+SiLU and 6 attention launches. Returns its launches."""
+    import io
+
+    from audio_diffusion_torch import bench
+    from audio_diffusion_torch.scripts import rebuild
+    from audio_diffusion_torch.scripts.rebuild import launch_counts
 
     kept = bench.TRAINED_256_DIR
     bench.TRAINED_256_DIR = root / rebuild.LATENT_256.name
@@ -3862,11 +3928,87 @@ def phase_rebuild(card: str, root: Path) -> dict:
         if block["launches"]["per_request"] != {"group_norm_silu": REBUILD_STEPS * 64,
                                                 "flash_mha": REBUILD_STEPS * TRAIN_ATTN}:
             fail(f"[rebuild] side run {what}: {block['launches']['per_request']} launches per request")
-    out["side_run"] = side
     print(f"[rebuild] bench side run ({time.perf_counter() - t0:.2f} s): random-init {line['value']:.4f} "
           f"{line['unit']}, trained ({trained['pipeline']}, {trained['dtype']}) {trained['value']:.4f}, gates "
           f"{trained['fidelity']}, launches per request {trained['launches']['per_request']}  [{card}]")
-    print(f"[rebuild] ok in {time.perf_counter() - t_phase:.1f} s")
+    return side
+
+
+def side_child(name: str, root: Path) -> None:
+    """One [rebuild] recipe in a process of its own (this script re-run with
+    --side NAME), working in ``root/<name>``, latent256's followed by bench's
+    side run. What it saw goes to ``root/<name>.json``."""
+    from audio_diffusion_torch.scripts import rebuild
+
+    card, work = card_line(), root / name
+    recipe = {r.name: r for r in (rebuild.LATENT_256, rebuild.CONDITIONAL_512)}[name]
+    launches, again = rebuild_recipe(recipe, card, work)
+    side = rebuild_side_run(card, work) if name == rebuild.LATENT_256.name else None
+    (root / f"{name}.json").write_text(json.dumps({"launches": launches, "again": again, "side_run": side,
+                                                   "ended": time.time()}))
+
+
+SIDE_TIMEOUT_S = 600  # each side process, from the start of the side-by-side phases
+
+
+@contextlib.contextmanager
+def side_processes(root: Path, names: list):
+    """Each of ``names`` (REBUILD_RECIPES) started in a process of its own
+    (side_child), side by side with the others and with what this process
+    runs meanwhile, its standard output and error to ``root``. Yields what
+    side_report reads; kills any process left at the exit. Only [rebuild]'s
+    recipes run so: [native] beside them as well ran an 80 GB H100 out of
+    memory (78.8 GiB in use), as every process keeps its own peak reserved."""
+    procs = {}
+    try:
+        for name in names:
+            (root / name).mkdir()
+            with open(root / f"{name}.out", "w") as out, open(root / f"{name}.err", "w") as err:
+                procs[name] = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--side", name,
+                                                "--side-root", str(root)], stdout=out, stderr=err)
+        yield {"root": root, "procs": procs, "started": time.time()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+
+
+def side_report(run: dict, name: str) -> dict:
+    """Waits for the side process ``name``, passes on what it printed and
+    returns what it saw; fails if it failed."""
+    root, p = run["root"], run["procs"][name]
+    try:
+        code = p.wait(timeout=max(1.0, SIDE_TIMEOUT_S - (time.time() - run["started"])))
+    except subprocess.TimeoutExpired:
+        fail(f"[{name}] did not finish within {SIDE_TIMEOUT_S} s of its start")
+    print((root / f"{name}.out").read_text(), end="")
+    err = (root / f"{name}.err").read_text()
+    if code != 0:
+        print(err[-6000:], file=sys.stderr)
+        fail(f"[{name}]: its process exited {code}")
+    print(err, end="", file=sys.stderr)
+    report = json.loads((root / f"{name}.json").read_text())
+    report["seconds"] = report["ended"] - run["started"]
+    return report
+
+
+def rebuild_finish(run: dict, card: str) -> dict:
+    """Waits for [rebuild]'s processes (side_report). Returns every launch
+    count by recipe and bench's side run's."""
+    out, again, seconds = {}, {}, []
+    for name in REBUILD_RECIPES:
+        report = side_report(run, name)
+        out[name], again[name] = report["launches"], report["again"]
+        if report["side_run"] is not None:
+            out["side_run"] = report["side_run"]
+        seconds.append(report["seconds"])
+    print(f"[rebuild] each recipe's VAE and UNet trained a second time: every saved tensor bitwise the first "
+          f"run's, the same fidelity record  [{card}]")
+    print(f"[time] [rebuild]'s second trainings took {sum(again.values()):.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in again.items()) + ")")
+    print(f"[rebuild] ok in {max(seconds):.1f} s, each recipe in a process of its own, side by side with the "
+          f"other phases after the train group")
     return out
 
 
@@ -3914,6 +4056,9 @@ def main(argv=None) -> int:
     # one rank of [dp]: the script re-runs itself with these
     for name in ("rank", "world", "init", "device", "backend", "shardings", "root", "tag"):
         ap.add_argument(f"--dp-{name}", default=None, help=argparse.SUPPRESS)
+    # one [rebuild] recipe in a process of its own: the script re-runs itself with these
+    ap.add_argument("--side", default=None, choices=REBUILD_RECIPES, help=argparse.SUPPRESS)
+    ap.add_argument("--side-root", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     only = set(args.only.split(","))
     if not only <= {*PHASE_GROUPS, "tier", "shard", "bench", "rebuild"}:
@@ -3935,6 +4080,9 @@ def main(argv=None) -> int:
     if args.dp_rank is not None:
         dp_rank(int(args.dp_rank), int(args.dp_world), args.dp_init, args.dp_device, args.dp_backend,
                 args.dp_shardings.split(","), Path(args.dp_root), args.dp_tag)
+        return 0
+    if args.side is not None:
+        side_child(args.side, Path(args.side_root))
         return 0
     card = card_line()
     print(card)
@@ -4032,30 +4180,35 @@ def main(argv=None) -> int:
             phase_train_vae(card, Path(d) / "slices")
         release_device_memory("the train group")
         print(f"[time] the train group done at {time.perf_counter() - t_start:.1f} s")
-    if "dp" in only:
+    # [rebuild]'s recipes and [dp]'s ranks run in processes of their own, side by side with each other and with
+    # [shard], [encoder-train] and [cond-train] here; their reports follow once they end
+    with contextlib.ExitStack() as side_by_side:
         import tempfile
 
-        with tempfile.TemporaryDirectory() as d:
-            dp_launches = phase_dp(card, Path(d))
-        lap("[dp]")
-    if "dp" in only or "shard" in only:
-        shard_launches = phase_shard(card)
-        phase_encoder_train(card)
-        release_device_memory("the dp group")
-        print(f"[time] the dp group done at {time.perf_counter() - t_start:.1f} s")
-    if "interop" in only:
-        import tempfile
-
-        with tempfile.TemporaryDirectory() as d:
-            cond_train_launches = phase_cond_train(card, Path(d))
-        lap("[cond-train]")
-    if "interop" in only or "rebuild" in only:
-        import tempfile
-
-        with tempfile.TemporaryDirectory() as d:
-            rebuild_launches = phase_rebuild(card, Path(d))
-        release_device_memory("the rebuild recipes")
-        print(f"[time] the interop group done at {time.perf_counter() - t_start:.1f} s")
+        sides = list(REBUILD_RECIPES) if "interop" in only or "rebuild" in only else []
+        side_run = side_by_side.enter_context(side_processes(
+            Path(side_by_side.enter_context(tempfile.TemporaryDirectory())), sides))
+        if "dp" in only:
+            dp_run = side_by_side.enter_context(dp_processes(
+                card, Path(side_by_side.enter_context(tempfile.TemporaryDirectory()))))
+        if "dp" in only or "shard" in only:
+            shard_launches = phase_shard(card)
+            phase_encoder_train(card)
+            release_device_memory("[shard] and [encoder-train]")
+            lap("[shard], [encoder-train]")
+        if "interop" in only:
+            with tempfile.TemporaryDirectory() as d:
+                cond_train_launches = phase_cond_train(card, Path(d))
+            lap("[cond-train]")
+        if "dp" in only:
+            dp_launches = dp_finish(dp_run, card)
+            lap("[dp]")
+        if sides:
+            rebuild_launches = rebuild_finish(side_run, card)
+            lap("[rebuild]")
+    if {"dp", "shard", "interop", "rebuild"} & only:
+        release_device_memory("the dp and interop groups")
+        print(f"[time] the dp and interop groups done at {time.perf_counter() - t_start:.1f} s")
     if only != set(PHASE_GROUPS):  # a partial run
         print(f"chip_smoke: partial run of {sorted(only)} done in {time.perf_counter() - t_start:.1f} s; no result")
         return 0

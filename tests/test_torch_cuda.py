@@ -1059,3 +1059,70 @@ def test_bench_serving_refuses_more_mesh_devices_than_cards():
 
     with pytest.raises(ValueError, match="mesh_data"):
         bench_serving.main(["--model", "unused", "--mesh_data", str(torch.cuda.device_count() + 1)])
+
+
+@pytest.mark.cuda
+def test_adversarial_vae_steps_repeat_themselves_bitwise():
+    """From one state past disc_start (a 32/64-channel VAE on 256x256 slices,
+    the recipe's, with the full-width PatchGAN: 64 channels, 3 layers), one
+    generator step and one discriminator step, each run twice on a copy of
+    that state with one batch and one posterior draw: every gradient, metric
+    and parameter bitwise equal (cuDNN's deterministic algorithms inside the
+    steps; without them the PatchGAN's first convolution's data gradient at
+    this shape differs between runs, scripts/repeat_probe.py)."""
+    _cuda()
+    from audio_diffusion_torch.scripts import repeat_probe as rp
+
+    state, gen_step, disc_step = rp.vae_setup("cuda", resolution=256, base_channels=32, ch_mult=(1, 2), groups=8,
+                                              disc_start=2)
+    assert state.disc.conv_in.out_channels == 64 and state.disc.n_layers == 3
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def batches():
+        while True:
+            yield torch.rand((1, 2, 256, 256, 1), generator=g, device="cuda") * 2 - 1
+
+    source = batches()
+    state = rp.vae_steps(state, gen_step, disc_step, source, 3, disc_start=2)
+    assert state.step == 3
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.enabled)
+    pair = rp.vae_pair(state, gen_step, disc_step, next(source))
+    assert (torch.backends.cudnn.deterministic, torch.backends.cudnn.enabled) == flags
+    for step in ("gen_step", "disc_step"):
+        assert pair[step]["bitwise"], pair[step]
+    assert pair["gen_step"]["metrics"]["g_loss"][0] != 0  # the adversarial term is on
+
+
+@pytest.mark.cuda
+def test_bf16_unet_step_repeats_itself_bitwise():
+    """One bf16 step of the full-width latent-256 UNet over cached latents
+    (microbatch 16), run twice from one initial state: the gradient, the loss
+    and every parameter after the update bitwise equal."""
+    _cuda()
+    from audio_diffusion_torch.scripts import repeat_probe as rp
+
+    pair = rp.unet_pair("cuda")
+    assert pair["bitwise"], pair
+
+
+@pytest.mark.cuda
+def test_conditional_unet_step_and_its_attention_repeat_themselves_bitwise():
+    """One bf16 step of the full-width conditional-latent-512 UNet (64x64
+    latents, an encoding per row, 8 x 2 microbatches as the 512 recipe
+    trains it), run twice from one initial state: every gradient and
+    parameter bitwise equal. Its attention core at the first level's
+    self-attention shape through ``SDPA`` twice: bitwise, where torch's own
+    backward is not (scripts/repeat_probe.py)."""
+    _cuda()
+    from audio_diffusion_torch.scripts import repeat_probe as rp
+
+    pair = rp.unet_pair("cuda", (64, 64), micro=8, accum=2, cross_attention_dim=100)
+    assert pair["bitwise"], {k: v for k, v in pair.items() if k != "attention"}
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v, grad = (torch.randn((8, 4096, 8, 16), generator=g, device="cuda").to(torch.bfloat16) for _ in range(4))
+    runs = []
+    for _ in range(2):
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        runs.append(torch.autograd.grad(at.SDPA.apply(*leaves), leaves, grad))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    assert not torch.are_deterministic_algorithms_enabled()

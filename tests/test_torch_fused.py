@@ -29,6 +29,7 @@ from test_torch_pipeline import FULL, UNET_KW, VAE_KW, _assert_uint8_close, _cli
 
 from audio_diffusion_torch.mel import Mel
 from audio_diffusion_torch.models import AutoencoderKL, UNet2D, UNetConfig, VAEConfig
+from audio_diffusion_torch.ops.attention import deterministic_algorithms
 from audio_diffusion_torch.pipelines import AudioDiffusionPipeline
 from audio_diffusion_torch.pipelines import pipeline as pipeline_module
 from audio_diffusion_torch.pipelines.pipeline import pcm16_quantize
@@ -160,7 +161,8 @@ def test_return_images_only_runs_the_stage_programs(latent):
 
 def test_cache_holds_one_program_per_signature(latent):
     """The same signature returns the same program; other steps, eta, cuDNN
-    setting or UNet (another compute dtype) make a new one."""
+    setting (on or off, its deterministic algorithms), torch's deterministic
+    algorithms or UNet (another compute dtype) make a new one."""
     latent._compiled.clear()
     latent(batch_size=2, steps=2, generator=_generators(1), return_arrays=True)
     (key,) = latent._compiled
@@ -177,6 +179,14 @@ def test_cache_holds_one_program_per_signature(latent):
         latent(batch_size=2, steps=2, generator=_generators(1), return_arrays=True)
     finally:
         torch.backends.cudnn.enabled = enabled
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = not deterministic
+    try:
+        latent(batch_size=2, steps=2, generator=_generators(1), return_arrays=True)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    with deterministic_algorithms():
+        latent(batch_size=2, steps=2, generator=_generators(1), return_arrays=True)
     unet = latent.unet
     bf16 = UNet2D(dataclasses.replace(unet.config, dtype="bfloat16"))
     bf16.load_state_dict(unet.state_dict())
@@ -186,9 +196,10 @@ def test_cache_holds_one_program_per_signature(latent):
     finally:
         latent.unet = unet
     keys = list(latent._compiled)
-    assert len(keys) == 5 and keys[0] == key
+    assert len(keys) == 7 and keys[0] == key
     changed = [{i for i, (a, b) in enumerate(zip(key, k)) if a != b} for k in keys[1:]]
-    assert changed == [{1}, {2}, {13}, {11, 16}], changed  # steps, eta, cudnn.enabled, the UNet (its dtype)
+    # steps, eta, cudnn.enabled, cudnn.deterministic, torch's deterministic algorithms, the UNet (its dtype)
+    assert changed == [{1}, {2}, {13}, {14}, {15}, {11, 18}], changed
 
 
 def test_fused_matches_the_jax_fused_path():

@@ -226,7 +226,8 @@ def test_port_imports_no_jax():
             "audio_diffusion_torch.models.ema, audio_diffusion_torch.audio_diffusion, audio_diffusion_torch.apps, "
             "audio_diffusion_torch.pipelines.stitch, audio_diffusion_torch.ops.beat, audio_diffusion_torch.utils.hub, "
             "audio_diffusion_torch.utils.ldm_import, audio_diffusion_torch.utils.profiling, "
-            "audio_diffusion_torch.utils.batch_invariant, "
+            "audio_diffusion_torch.utils.batch_invariant, audio_diffusion_torch.utils.flag_window, "
+            "audio_diffusion_torch.scripts.repeat_probe, "
             "audio_diffusion_torch.data.native_audio, audio_diffusion_torch.data.prepare, "
             "audio_diffusion_torch.scripts.audio_to_images, audio_diffusion_torch.scripts.encode_audio, "
             "audio_diffusion_torch.scripts.convert_checkpoint, audio_diffusion_torch.parallel, "
