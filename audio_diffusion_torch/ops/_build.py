@@ -46,6 +46,8 @@ SIGNATURES = {
     # args (attention._ARGS: q, k, v, o, B*heads, heads, the b/h/n strides, vec), plan (an attention._CPlan),
     # stream
     "adt_mha_fwd": (_P, _P, _P),
+    # k (the stage boundary, 0-3), stream
+    "adt_stage_mark_launch": (_I, _P),
 }
 # Entry points called with the GIL held (through ctypes.PyDLL): they read an
 # argument array that the wrapper fills in place before each call.

@@ -74,6 +74,7 @@ from ..mel import Mel
 from ..models.unet2d import UNet2D
 from ..models.vae import AutoencoderKL
 from ..ops import attention, fused_groupnorm
+from ..ops.stage_mark import stage_mark
 from ..schedulers import DDIMScheduler, DDPMScheduler, load_scheduler, save_scheduler
 from ..schedulers.common import step_noises
 from ..utils import diffusers_io
@@ -603,10 +604,13 @@ class AudioDiffusionPipeline:
 
     def _segment(self, prog: Program, j: int) -> None:
         """Segment ``j`` of the fused program, on its static inputs: [the
-        input prep,] its denoise steps [, then decode, postprocess and audio]."""
+        input prep,] its denoise steps [, then decode, postprocess and audio].
+        Stage marks (:func:`..ops.stage_mark.stage_mark`) go into the graph at
+        the request's start and after the denoise, the decode and the audio."""
         inp, state = prog.inputs, prog.state
         i0, i1 = prog.segments[j]
         if j == 0:
+            stage_mark(0, self.device)
             x = input_images = inp["noise"]
             if prog.input_mode != "none":
                 x, input_images = self._prep_inputs(inp["slices"], inp["noise"], prog.input_mode == "batched",
@@ -620,8 +624,11 @@ class AudioDiffusionPipeline:
         if j < len(prog.segments) - 1:
             state["x"] = x
         else:
+            stage_mark(1, self.device)
             state["raw"] = self._decode(x)
+            stage_mark(2, self.device)
             state["audio"] = self._audio(state["raw"], None, inp["gl_phase"], prog.pcm16)
+            stage_mark(3, self.device)
 
     def _stage_body(self, prog: Program, j: int) -> None:
         """Segment ``j`` of one stage's program (``prog.key[0]``), on its

@@ -41,6 +41,21 @@
 * **Admission control.** ``submit`` sheds over-capacity requests with
   :class:`QueueFull` (global and per-group caps, throughput-based
   ``retry_after_s``); the HTTP front-end maps it to 429 + ``Retry-After``.
+* **What it records.** Each finished batch appends one entry to ``stats``:
+  its sequence number ``batch`` (a served request is (batch, row)), ``n``,
+  ``tier``, ``steps``; ``wait_ms``, one per row, from ``submit`` to the
+  worker taking the batch; ``assemble_ms``, from there to the pipeline call;
+  ``launch_ms``, from the pipeline call to handing the batch to the finisher
+  (a blocked hand-over left out); ``run_s``, from the pipeline call to the
+  results on the host (behind the batches already launched, the copy and
+  the delivery included); ``device_ms``, CUDA events on the pipeline's
+  stream around the pipeline call (None on the CPU); ``copy_ms``. A row's
+  ``wait_ms + assemble_ms + run_s`` is its submit-to-result latency. While
+  a profiler runs, the worker also records spans (:func:`..utils.profiling.span`):
+  ``adt.serve.hold`` (a head request found, companions awaited, the batch
+  taken), ``adt.serve.assemble``, ``adt.serve.launch`` (the pipeline call
+  and the copy's start) and ``adt.serve.backpressure`` (the hand-over to
+  the finisher blocked), each with its ``batch``.
 """
 
 from __future__ import annotations
@@ -56,7 +71,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..utils import batch_invariant
+from ..utils import batch_invariant, profiling
 
 
 @dataclass
@@ -196,7 +211,8 @@ class DynamicBatcher:
         self._closed = False
         self.batches_run = 0
         self.requests_served = 0
-        self.stats = deque(maxlen=256)  # per batch: n, tier, denoise steps, run_s, copy_ms
+        self.stats = deque(maxlen=256)  # per batch: the module docstring's "What it records"
+        self._taken = 0  # the next batch's sequence number
         self._latencies = deque(maxlen=1024)  # per request: submit -> result, s
         self._stats_lock = threading.Lock()  # healthz readers vs the finisher
         # maxsize=2 bounds how many undelivered batch outputs sit on the device.
@@ -370,23 +386,28 @@ class DynamicBatcher:
                     self._cond.wait()
                 if not any(self._groups.values()):
                     return  # closed and drained
-                # Serve the group whose head request has waited longest.
-                key = min((k for k, dq in self._groups.items() if dq), key=lambda k: self._groups[k][0].enqueued)
-                dq = self._groups[key]
-                deadline = dq[0].enqueued + self.max_wait_s
-                while (
-                    not self._closed
-                    and len(dq) < self.tiers[-1]
-                    and (remaining := deadline - time.monotonic()) > 0
-                ):
-                    self._cond.wait(timeout=remaining)
-                if self.batch_policy == "snap" and len(dq) >= self.tiers[0]:
-                    take = max(t for t in self.tiers if t <= len(dq))
-                else:
-                    take = min(len(dq), self.tiers[-1])
-                batch = [dq.popleft() for _ in range(take)]
-                if not dq:
-                    del self._groups[key]
+                seq = self._taken
+                self._taken += 1
+                with profiling.span("adt.serve.hold", batch=seq):
+                    # Serve the group whose head request has waited longest.
+                    key = min((k for k, dq in self._groups.items() if dq),
+                              key=lambda k: self._groups[k][0].enqueued)
+                    dq = self._groups[key]
+                    deadline = dq[0].enqueued + self.max_wait_s
+                    while (
+                        not self._closed
+                        and len(dq) < self.tiers[-1]
+                        and (remaining := deadline - time.monotonic()) > 0
+                    ):
+                        self._cond.wait(timeout=remaining)
+                    if self.batch_policy == "snap" and len(dq) >= self.tiers[0]:
+                        take = max(t for t in self.tiers if t <= len(dq))
+                    else:
+                        take = min(len(dq), self.tiers[-1])
+                    batch = [dq.popleft() for _ in range(take)]
+                    t_take = time.monotonic()
+                    if not dq:
+                        del self._groups[key]
             # Mark running (and drop requests cancelled while queued) BEFORE
             # the device call: a set_result on a cancelled future would raise
             # mid-fan-out and corrupt co-batched results.
@@ -394,51 +415,68 @@ class DynamicBatcher:
             if not batch:
                 continue
             try:
-                self._run_batch(key, batch)
+                self._run_batch(key, batch, seq, t_take)
             except Exception as e:  # propagate to every caller, keep serving
                 for p in batch:
                     if not p.future.done():
                         p.future.set_exception(e)
 
-    def _run_batch(self, key: tuple, batch: list) -> None:
+    def _run_batch(self, key: tuple, batch: list, seq: int, t_take: float) -> None:
         steps, eta, enc_shape, start_step, has_audio = key
         h, w = self.pipe.sample_hw
         c = self.pipe.unet.config.in_channels
         tier = self._tier_for(len(batch))
 
-        noise = np.zeros((tier, h, w, c), np.float32)
-        for i, p in enumerate(batch):
-            noise[i] = _noise_for_seed(p.seed, h, w, c)
-        encoding = None
-        if enc_shape is not None:
-            encoding = np.zeros((tier,) + enc_shape, np.float32)
+        with profiling.span("adt.serve.assemble", batch=seq):
+            noise = np.zeros((tier, h, w, c), np.float32)
             for i, p in enumerate(batch):
-                encoding[i] = p.encoding
-        raw_audio = None
-        if has_audio:
-            # (tier, slice): each request styles its own clip; padding rows are silence.
-            full = self.pipe.mel.x_res * self.pipe.mel.hop_length
-            raw_audio = np.zeros((tier, full), np.float32)
-            for i, p in enumerate(batch):
-                raw_audio[i, : len(p.audio)] = p.audio
-
-        t_run = time.monotonic()
-        raw_dev, audios_dev = self._call_pipe(
-            noise=noise,
-            encoding=encoding,
-            raw_audio=raw_audio,
-            start_step=start_step,
-            steps=steps,
-            eta=eta,
+                noise[i] = _noise_for_seed(p.seed, h, w, c)
+            encoding = None
+            if enc_shape is not None:
+                encoding = np.zeros((tier,) + enc_shape, np.float32)
+                for i, p in enumerate(batch):
+                    encoding[i] = p.encoding
+            raw_audio = None
+            if has_audio:
+                # (tier, slice): each request styles its own clip; padding rows are silence.
+                full = self.pipe.mel.x_res * self.pipe.mel.hop_length
+                raw_audio = np.zeros((tier, full), np.float32)
+                for i, p in enumerate(batch):
+                    raw_audio[i, : len(p.audio)] = p.audio
             # Per-row step generators seeded from each request's seed: a
             # request's stochastic samples are the same alone or co-batched.
             # Padding rows take seed 0; their outputs are dropped.
-            step_generator=self._step_generators([p.seed for p in batch] + [0] * (tier - len(batch))),
-            return_arrays=True,
-            pcm16=self.pcm16,
-        )
-        hosts, events = copy_to_host_async((raw_dev, audios_dev), self._copy_stream)
-        self._finish_q.put((batch, tier, steps - start_step, hosts, events, t_run))
+            step_generator = self._step_generators([p.seed for p in batch] + [0] * (tier - len(batch)))
+
+        with profiling.span("adt.serve.launch", batch=seq):
+            t_run = time.monotonic()
+            on_card = None
+            if self._copy_stream is not None:  # on a CUDA device
+                on_card = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                on_card[0].record(torch.cuda.current_stream(self.device))
+            raw_dev, audios_dev = self._call_pipe(
+                noise=noise,
+                encoding=encoding,
+                raw_audio=raw_audio,
+                start_step=start_step,
+                steps=steps,
+                eta=eta,
+                step_generator=step_generator,
+                return_arrays=True,
+                pcm16=self.pcm16,
+            )
+            if on_card is not None:
+                on_card[1].record(torch.cuda.current_stream(self.device))
+            hosts, events = copy_to_host_async((raw_dev, audios_dev), self._copy_stream)
+        t_hand = time.monotonic()
+        times = {"batch": seq, "wait_ms": [round(1e3 * (t_take - p.enqueued), 3) for p in batch],
+                 "assemble_ms": round(1e3 * (t_run - t_take), 3), "launch_ms": round(1e3 * (t_hand - t_run), 3)}
+        item = (batch, tier, steps - start_step, hosts, events, t_run, times, on_card)
+        try:
+            self._finish_q.put_nowait(item)
+        except queue.Full:
+            with profiling.span("adt.serve.backpressure", batch=seq):
+                self._finish_q.put(item)
 
     # -------------------------------------------------------------- finisher
 
@@ -447,12 +485,14 @@ class DynamicBatcher:
             item = self._finish_q.get()
             if item is None:
                 return
-            batch, tier, denoise_steps, hosts, events, t_run = item
+            batch, tier, denoise_steps, hosts, events, t_run, times, on_card = item
             try:
-                copy_ms = None
+                copy_ms = device_ms = None
                 if events is not None:
-                    events[1].synchronize()
+                    events[1].synchronize()  # the copy waited for the pipeline's stream past on_card[1]
                     copy_ms = events[0].elapsed_time(events[1])
+                    if on_card is not None:
+                        device_ms = on_card[0].elapsed_time(on_card[1])
                 raw, audios = (t.numpy() for t in hosts)
             except Exception as e:
                 for p in batch:
@@ -464,7 +504,8 @@ class DynamicBatcher:
                 self.batches_run += 1
                 self.requests_served += len(batch)
                 self.stats.append({"n": len(batch), "tier": tier, "steps": denoise_steps,
-                                   "run_s": round(now - t_run, 4), "copy_ms": copy_ms})
+                                   "run_s": round(now - t_run, 4), "copy_ms": copy_ms, **times,
+                                   "device_ms": device_ms})
                 self._latencies.extend(round(now - p.enqueued, 4) for p in batch)
             sr = self.pipe.mel.get_sample_rate()
             for i, p in enumerate(batch):

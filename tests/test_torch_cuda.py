@@ -644,6 +644,101 @@ def test_graph_replay_is_bitwise_the_eager_request(eta):
     assert launches == eager_launches == tuple(prog.launches[0]) and eager_launches[0] > 0 and eager_launches[1] > 0
 
 
+@pytest.fixture
+def card():
+    """The card, or a skip where torch sees none (decided here, never at import)."""
+    _cuda()
+    return torch.device("cuda:0")
+
+
+@pytest.mark.cuda
+def test_a_traced_replay_shows_each_stage_mark_once_in_order(card):
+    """A profiled replay of a fused b1 request shows adt_stage_mark<0..3>
+    once each, in order, on the card's timeline."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    pipe = _tiny_fused_pipeline()
+    pipe(batch_size=1, steps=3, return_arrays=True)  # captures the program
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pipe(batch_size=1, steps=3, return_arrays=True)
+        torch.cuda.synchronize()
+    marks = sorted((e.start_ns(), int(m.group(1))) for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == torch.autograd.DeviceType.CUDA
+                   and (m := re.search(r"\badt_stage_mark<(\d)>", e.name())))
+    assert [k for _, k in marks] == [0, 1, 2, 3], marks
+
+
+@pytest.mark.cuda
+def test_a_thread_started_before_the_profiler_records_its_spans(card):
+    import threading
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from audio_diffusion_torch.utils import profiling
+
+    go, done = threading.Event(), threading.Event()
+
+    def worker():
+        go.wait(60)
+        with profiling.span("adt.test.worker", batch=5):
+            torch.ones(8, device=card).sum().item()
+        done.set()
+
+    thread = threading.Thread(target=worker, name="adt-test-worker")
+    thread.start()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        go.set()
+        assert done.wait(60)
+    thread.join(60)
+    assert not thread.is_alive()
+    mine = [s for s in profiling.spans() if s.name == "adt.test.worker"]
+    assert mine and mine[-1].thread == "adt-test-worker" and mine[-1].ids == {"batch": 5}
+
+
+@pytest.mark.cuda
+def test_spans_share_the_profilers_clock(card):
+    """On the profiler's thread, a span around a record_function begins and
+    ends within 100 µs of it: time.time_ns and kineto share one clock."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from audio_diffusion_torch.utils import profiling
+
+    x = torch.ones(1024, device=card)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("adt.test.warm"):  # a first annotation costs more
+            x.mul(2.0)
+        with profiling.span("adt.test.outer"):
+            with record_function("adt.test.inner"):
+                x.mul(3.0)
+        torch.cuda.synchronize()
+    (inner,) = [e for e in prof.profiler.kineto_results.events() if e.name() == "adt.test.inner"
+                and e.device_type() != torch.autograd.DeviceType.CUDA]
+    outer = [s for s in profiling.spans() if s.name == "adt.test.outer"][-1]
+    assert abs(inner.start_ns() - outer.t0_ns) < 100_000
+    assert abs(outer.t1_ns - (inner.start_ns() + inner.duration_ns())) < 100_000
+
+
+@pytest.mark.cuda
+def test_a_served_batch_times_its_device_work(card):
+    """device_ms (CUDA events around the pipeline call) is positive and no
+    larger than the batch's run_s, which also waits for the copy and the delivery."""
+    from audio_diffusion_torch.serving import DynamicBatcher
+
+    batcher = DynamicBatcher(_tiny_fused_pipeline(), max_batch=2, max_wait_ms=200, steps=3)
+    try:
+        batcher.warmup()
+        for f in [batcher.submit(seed=s) for s in range(2)]:
+            f.result(timeout=300)
+    finally:
+        batcher.close()
+    assert batcher.stats
+    for s in batcher.stats:
+        assert 0 < s["device_ms"] <= 1e3 * s["run_s"] and len(s["wait_ms"]) == s["n"]
+
+
 def _full_width_f32_pipeline():
     """The latent-256 pipeline at full width (the 6-block UNet over 32x32
     latents, the 256 VAE, Mel 256x256 hop 512) in f32, seeded random weights."""

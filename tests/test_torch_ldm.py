@@ -5,7 +5,8 @@ stripped, unmapped attention refused); the converted VAE loads strict=True
 and decodes like the JAX ``convert_ldm_vae`` model within 1e-5 of max |ref|;
 ``python -m audio_diffusion_torch.scripts.convert_checkpoint`` turns a
 Lightning .ckpt and its yaml into a diffusers-layout directory that the
-trainer's ``--vae`` loader reads; ``trace`` writes a Chrome trace."""
+trainer's ``--vae`` loader reads; ``trace`` writes a Chrome trace, with the
+program's spans in it."""
 
 import json
 import os
@@ -112,7 +113,25 @@ def test_profiling_trace_and_step_timer(tmp_path):
         torch.ones(8).sum()
     with open(tmp_path / "trace" / "trace.json") as fh:
         assert json.load(fh)["traceEvents"]
-    timer = profiling.StepTimer(window=2)
-    for _ in range(3):
-        assert timer.tick() >= 0
-    assert len(timer._times) == 2 and timer.rate(4) == pytest.approx(4 / timer.mean)
+
+
+def test_profiling_trace_writes_the_programs_spans_around_the_ops_inside(tmp_path):
+    """A span recorded while ``trace`` runs lands in the Chrome trace on the
+    file's own time base, enclosing the torch op run inside it, on a row of
+    its thread; a span recorded with no profiler running is recorded nowhere."""
+    before = profiling.spans()
+    with profiling.span("outside", batch=0):
+        torch.ones(4).sum()
+    assert profiling.spans() == before
+    with profiling.trace(str(tmp_path)):
+        with profiling.span("adt.test.region", batch=7):
+            torch.ones(64).mul(3.0)
+    with open(tmp_path / "trace.json") as fh:
+        events = json.load(fh)["traceEvents"]
+    (mine,) = [e for e in events if e.get("cat") == "adt_span"]
+    (op,) = [e for e in events if e.get("name") == "aten::mul" and e.get("ph") == "X"]
+    assert mine["name"] == "adt.test.region" and mine["args"] == {"batch": 7}
+    assert mine["ts"] <= op["ts"] and op["ts"] + op["dur"] <= mine["ts"] + mine["dur"]
+    names = [e["args"]["name"] for e in events if e.get("ph") == "M" and e.get("tid") == mine["tid"]]
+    assert names == ["MainThread (spans)"]
+    assert profiling.spans()[-1].name == "adt.test.region"

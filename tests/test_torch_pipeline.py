@@ -140,6 +140,29 @@ def test_latent_pipeline_matches_jax(pipes):
     assert lsb <= 2, lsb
 
 
+def test_fused_request_marks_its_stage_boundaries_in_order(pipes, monkeypatch):
+    """The fused request's segment calls the stage-mark wrapper at the
+    request's start and after the denoise, the decode and the audio, in that
+    order, with the pipeline's device; the staged path marks nothing."""
+    from audio_diffusion_torch.pipelines import pipeline as pipeline_mod
+
+    _, tpipe = pipes
+    seen = []
+    monkeypatch.setattr(pipeline_mod, "stage_mark", lambda k, device: seen.append((f"mark {k}", device)))
+    for stage in ("_denoise", "_decode", "_audio"):
+        inner = getattr(tpipe, stage)
+        monkeypatch.setattr(tpipe, stage, lambda *a, _inner=inner, _stage=stage, **kw: (
+            seen.append((_stage, None)), _inner(*a, **kw))[1])
+    noise = torch.from_numpy(_noise(3, (1, 16, 16, 1)))
+    tpipe(noise=noise, steps=2, return_arrays=True)
+    assert [name for name, _ in seen] == ["mark 0", "_denoise", "mark 1", "_decode", "mark 2", "_audio", "mark 3"]
+    assert all(device == tpipe.device for name, device in seen if name.startswith("mark"))
+    seen.clear()
+    monkeypatch.setattr(tpipe, "fuse", False)
+    tpipe(noise=noise, steps=2, return_arrays=True)
+    assert [name for name, _ in seen] == ["_denoise", "_decode", "_audio"]
+
+
 def _clips(seed, n):
     t = np.arange(FULL) / 22050
     rng = np.random.default_rng(seed)

@@ -35,6 +35,7 @@ from audio_diffusion_torch.schedulers import DDIMScheduler, SchedulerConfig
 from audio_diffusion_torch.serving import AudioDiffusionServer, DynamicBatcher, QueueFull, make_server
 from audio_diffusion_torch.serving.__main__ import parse_args
 from audio_diffusion_torch.serving.batcher import _noise_for_seed, copy_to_host_async
+from audio_diffusion_torch.utils import profiling
 
 RES = 16
 HOP = 512
@@ -431,6 +432,68 @@ def test_warmup_covers_live_batch_programs(one_thread):
         batcher.close()
     new = set(fresh._compiled) - warmed
     assert not new, f"live batches made programs warmup missed: {sorted(map(str, new))}"
+
+
+def test_stats_split_each_rows_latency_and_no_span_without_a_profiler(pipe):
+    """Every batch's entry carries its sequence number, one wait per row, the
+    assembly and launch times and, on the CPU, no device time; a row's wait +
+    assembly + run is its submit-to-result latency. No profiler runs, so the
+    worker records no span."""
+    from audio_diffusion_torch.utils import profiling
+
+    before = profiling.spans()
+    batcher = DynamicBatcher(pipe, max_batch=4, max_wait_ms=50, steps=2)
+    try:
+        futs = [batcher.submit(seed=s) for s in range(3)]
+        for f in futs:
+            f.result(timeout=120)
+        futs = [batcher.submit(seed=s) for s in range(2)]
+        for f in futs:
+            f.result(timeout=120)
+    finally:
+        batcher.close()
+    stats, lats = list(batcher.stats), list(batcher._latencies)
+    assert profiling.spans() == before
+    assert [s["batch"] for s in stats] == sorted({s["batch"] for s in stats}) and sum(s["n"] for s in stats) == 5
+    k = 0
+    for s in stats:
+        assert len(s["wait_ms"]) == s["n"] and s["device_ms"] is None
+        assert s["assemble_ms"] >= 0 and s["launch_ms"] >= 0 and 1e3 * s["run_s"] >= s["launch_ms"] - 0.1
+        for w in s["wait_ms"]:
+            assert abs((w + s["assemble_ms"]) / 1e3 + s["run_s"] - lats[k]) < 1e-3
+            k += 1
+    assert k == len(lats) == 5
+
+
+def test_worker_spans_under_a_profiler_on_the_main_thread(pipe):
+    """With ``torch.profiler.profile`` started on this thread, the worker
+    records hold, assemble and launch for every batch from its own thread,
+    each with its batch number, and backpressure where the finisher is held
+    back (its queue full: here, the stats lock held)."""
+    mark = len(profiling.spans())
+    batcher = DynamicBatcher(pipe, max_batch=1, max_wait_ms=0, steps=2)
+    try:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            with batcher._stats_lock:  # the finisher stops at its first batch's entry
+                futs = [batcher.submit(seed=s) for s in range(4)]
+                deadline = time.monotonic() + 120
+                # until the fourth batch's hand-over waits on the full queue
+                while not batcher._finish_q.not_full._waiters and time.monotonic() < deadline:
+                    time.sleep(0.01)
+                released = time.time_ns()
+            for f in futs:
+                f.result(timeout=120)
+    finally:
+        batcher.close()
+    got = [s for s in profiling.spans()[mark:] if s.name.startswith("adt.serve.")]
+    assert {s.thread for s in got} == {"adt-batcher"}
+    for b in range(4):
+        mine = [s for s in got if s.ids == {"batch": b}]
+        names = [s.name for s in mine]
+        assert names[:3] == ["adt.serve.hold", "adt.serve.assemble", "adt.serve.launch"], names
+        assert all(a.t1_ns <= c.t0_ns for a, c in zip(mine, mine[1:]))
+    back = [s for s in got if s.name == "adt.serve.backpressure"]
+    assert [s.ids["batch"] for s in back] == [3] and back[0].t0_ns < released <= back[0].t1_ns
 
 
 def test_finisher_copy_on_the_cpu_is_the_plain_path():
