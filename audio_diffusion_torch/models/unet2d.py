@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import dot_product_attention, multi_head_attention
+from ..ops.batch_invariant_conv2d import batch_invariant_conv2d
 from ..ops.fused_groupnorm import fused_group_norm_silu
 from ..utils.config import ConfigMixin
 
@@ -115,9 +116,17 @@ def conditional_config(sample_size=(256, 256), in_channels=1, out_channels=1, cr
 # ------------------------------------------------------------------ layers
 
 class Conv2d(nn.Conv2d):
-    """nn.Conv2d whose f32 parameters are cast to the input's dtype per call."""
+    """nn.Conv2d whose f32 parameters are cast to the input's dtype per call.
+
+    Inside the batcher's batch-invariant window (cuDNN off, as
+    ``utils/batch_invariant.py::window`` sets it and every fused program's key
+    records it) a bf16 call on the card takes
+    :func:`..ops.batch_invariant_conv2d.batch_invariant_conv2d`, whose tiling
+    never depends on the batch; it rounds the f32 parameters to bf16 itself."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.is_cuda and x.dtype == torch.bfloat16 and not torch.backends.cudnn.enabled:
+            return batch_invariant_conv2d(x.contiguous(), self.weight, self.bias, self.stride, self.padding)
         return F.conv2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype), self.stride, self.padding)
 
 

@@ -48,6 +48,10 @@ SIGNATURES = {
     "adt_mha_fwd": (_P, _P, _P),
     # k (the stage boundary, 0-3), stream
     "adt_stage_mark_launch": (_I, _P),
+    # (none): sets the convolution kernels' attributes; called once, at load
+    "adt_bi_conv2d_init": (),
+    # x, w, bias (or None), y, batch, h, w, padding, plan (a batch_invariant_conv2d._CPlan), stream
+    "adt_bi_conv2d": (_P, _P, _P, _P, _LL, _I, _I, _I, _P, _P),
 }
 # Entry points called with the GIL held (through ctypes.PyDLL): they read an
 # argument array that the wrapper fills in place before each call.
@@ -112,6 +116,7 @@ class KernelLibrary:
             with torch.cuda.device(device):
                 check(self.adt_group_norm_silu_init(), "adt_group_norm_silu_init")
                 check(self.adt_mha_init(), "adt_mha_init")
+                check(self.adt_bi_conv2d_init(), "adt_bi_conv2d_init")
             self.devices.add(device)
         return self
 

@@ -73,7 +73,7 @@ from PIL import Image
 from ..mel import Mel
 from ..models.unet2d import UNet2D
 from ..models.vae import AutoencoderKL
-from ..ops import attention, fused_groupnorm
+from ..ops import attention, batch_invariant_conv2d, fused_groupnorm
 from ..ops.stage_mark import stage_mark
 from ..schedulers import DDIMScheduler, DDPMScheduler, load_scheduler, save_scheduler
 from ..schedulers.common import step_noises
@@ -87,7 +87,8 @@ LATENT_SCALE = 0.18215  # SD latent scaling (pipeline.py:47)
 # with each graph's draws made just before its replay.
 STEP_NOISE_BYTES = 1 << 30
 # The kernel wrappers whose launch counters a replay credits.
-LAUNCH_COUNTERS = (fused_groupnorm.group_norm_silu, attention.flash_mha)
+LAUNCH_COUNTERS = (fused_groupnorm.group_norm_silu, attention.flash_mha,
+                   batch_invariant_conv2d.batch_invariant_conv2d)
 
 
 def postprocess_images(x: torch.Tensor) -> torch.Tensor:

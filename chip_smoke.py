@@ -67,7 +67,14 @@ Phases, one line each (plus detail lines):
              with cuDNN's defaults, with cudnn.deterministic and inside the
              batcher's window: the calls whose row depends on the batch, the
              drift they cause (none in the window, or the run fails), the
-             forward's time with and without the f32 row blocks.
+             forward's time with and without the f32 row blocks, and the
+             window's UNet forward and VAE decode with the convolution
+             kernel, with cuDNN on and with the old cuDNN-off path. [conv]
+             (before [tier]): every bf16 convolution of a UNet forward and a
+             VAE decode at batches 8 and 32 through the batch-invariant
+             convolution kernel, checked against an f32 conv and row 0
+             alone, timed beside its bound, the old path and cuDNN; the f32
+             convolutions left on the per-row path timed.
              [bench] (after [serve] f32): the port's measurement programs
              through their main(argv) at full width: ``bench`` (batch 32, 50
              steps, 5 requests x 3 windows) and ``bench --latency`` on this
@@ -1066,8 +1073,137 @@ def describe_probe(probe: dict) -> str:
         "; ".join(f"{n} ({k}) {d:.3g}" for n, k, d in mods) if mods else "none")
 
 
+CONV_BATCHES = (SERVE_TIER, 32)  # [conv]: the served batches the convolution kernel is timed at
+H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak
+
+
+def conv_layers(pipe) -> list:
+    """Every convolution module of one UNet forward and one VAE decode of
+    ``pipe``, in call order: (where, module, the input's shape without its
+    batch, its dtype), from forward pre-hooks on one eager batch-1 call. (The
+    UNet's f32 conv_out is a functional call, not among them.)"""
+    import torch
+
+    seen = []
+    h, w = pipe.sample_hw
+    z = torch.zeros((1, h, w, pipe.unet.config.in_channels), device="cuda")
+    for where, model, call in (("unet", pipe.unet, lambda: pipe.unet(z, torch.full((), 500, device="cuda"))),
+                               ("decode", pipe.vqvae, lambda: pipe.vqvae.decode(z))):
+        hooks = [m.register_forward_pre_hook(lambda mod, args, where=where: seen.append(
+            (where, mod, tuple(args[0].shape[1:]), args[0].dtype))) for m in model.modules()
+            if isinstance(m, torch.nn.Conv2d)]
+        try:
+            with torch.inference_mode():
+                call()
+        finally:
+            for hk in hooks:
+                hk.remove()
+    return seen
+
+
+def phase_conv(pipe, card: str) -> dict:
+    """[conv] The batch-invariant convolution kernel
+    (``csrc/batch_invariant_conv2d.cu``) at every bf16 convolution of one
+    UNet forward and one VAE decode of the served pipeline, at batches
+    CONV_BATCHES: against F.conv2d in f32 over the same bf16-rounded operands
+    (within one bf16 ulp plus 1e-5 * max|ref|, TF32 off), row 0 alone bitwise
+    its row in the batch; then per distinct layer the kernel's time (CUDA
+    events around eager calls, host gaps in; replayed from a CUDA graph), its
+    bound (the larger of 2*M*N*K at 989 TFLOP/s and the f32 weights, x and y
+    at 3.35 TB/s), the old cuDNN-off path (what Conv2d ran in the window
+    before the kernel: the casts and PyTorch's per-row convolution; events)
+    and cuDNN's call on pre-cast operands (the library yardstick, never called
+    by the port; events / graph), summed over the forward and the decode."""
+    import collections
+
+    import torch
+    import torch.nn.functional as F
+
+    from audio_diffusion_torch.ops import batch_invariant_conv2d as bic
+    from audio_diffusion_torch.utils import batch_invariant
+
+    # one timing per distinct layer shape (its first module's weights), counted as often as the shape is called
+    every = conv_layers(pipe)
+    layers = [(where, (shape, tuple(m.weight.shape), m.stride, m.padding), m) for where, m, shape, dtype in every
+              if dtype == torch.bfloat16]
+    counts = collections.Counter((where, key) for where, key, _ in layers)
+    modules = {}
+    for where, key, m in layers:
+        modules.setdefault(key, m)
+    out = {}
+    for b in CONV_BATCHES:
+        sums = collections.defaultdict(lambda: [0.0] * 6)
+        for (where, key), n in counts.items():
+            m, shape = modules[key], key[0]
+            g = torch.Generator(device="cuda").manual_seed(b)
+            x = torch.randn((b, *shape), generator=g, device="cuda").bfloat16()
+            big = x.numel() > 1 << 27
+            reps = 2 if big else 10
+
+            def kernel():
+                return bic.batch_invariant_conv2d(x, m.weight, m.bias, m.stride, m.padding)
+
+            with torch.inference_mode():
+                y = kernel()
+                ref = F.conv2d(x.float(), m.weight.bfloat16().float(), m.bias.bfloat16().float(), m.stride,
+                               m.padding)
+                d = (y.float() - ref).abs()
+                if (d / (bf16_ulp(ref) + 1e-5 * ref.abs().max())).max().item() > 1.0:
+                    fail(f"[conv] {where} {shape} at batch {b}: the kernel is off the f32 conv by {d.max().item()}")
+                if not torch.equal(bic.batch_invariant_conv2d(x[:1], m.weight, m.bias, m.stride, m.padding), y[:1]):
+                    fail(f"[conv] {where} {shape}: row 0 alone differs from its row in batch {b}")
+                wb, bb = m.weight.bfloat16(), m.bias.bfloat16()
+                t = [cuda_time_ms(kernel, reps), graph_time_ms(kernel, reps)]
+                torch.backends.cudnn.enabled = False
+                try:
+                    t.append(cuda_time_ms(lambda: F.conv2d(x, m.weight.to(x.dtype), m.bias.to(x.dtype), m.stride,
+                                                           m.padding), 1 if big else 3))
+                finally:
+                    torch.backends.cudnn.enabled = True
+                t += [cuda_time_ms(lambda: F.conv2d(x, wb, bb, m.stride, m.padding), reps),
+                      graph_time_ms(lambda: F.conv2d(x, wb, bb, m.stride, m.padding), reps)]
+            cout, cin, kh, kw = m.weight.shape
+            flops = 2 * y.numel() * cin * kh * kw
+            bound = max(flops / H100_BF16_FLOPS * 1e3, bytes_bound_ms(4 * m.weight.numel() + 2 * x.numel()
+                                                                       + 2 * y.numel()))
+            t.append(bound)
+            for i, v in enumerate(t):
+                sums[where][i] += n * v
+            plan = bic.conv_plan(cin, cout, y.shape[2], y.shape[3], kh, kw, m.stride[0])
+            print(f"[conv]   batch {b} {where} x{n} {shape} -> {cout} k{kh} s{m.stride[0]} (tile {plan.block_m}x"
+                  f"{plan.block_n}, split {plan.splits}): kernel {t[0]:.4f} / {t[1]:.4f} ms ({flops / t[1] / 1e9:.1f} "
+                  f"TFLOP/s), bound {bound:.4f} ({100 * bound / t[1]:.1f}%), old cuDNN-off {t[2]:.4f}, cuDNN "
+                  f"{t[3]:.4f} / {t[4]:.4f}")
+        for where, v in sums.items():
+            calls = sum(n for (w, _), n in counts.items() if w == where)
+            print(f"[conv] {where} at batch {b}, every bf16 convolution summed ({calls} calls): kernel events / graph "
+                  f"{v[0]:.4f} / {v[1]:.4f} ms, bound {v[5]:.4f} ({100 * v[5] / v[1]:.1f}% of the "
+                  f"graph time), old cuDNN-off path {v[2]:.4f}, cuDNN {v[3]:.4f} / {v[4]:.4f}  [{card}]")
+        out[b] = dict(sums)
+        # The f32 convolutions keep PyTorch's per-row path in the window: the UNet's conv_out (a functional call over
+        # bf16-rounded operands, once per denoise step), the VAE's post_quant_conv and conv_out (once per decode).
+        unet_out = pipe.unet.conv_out
+        xu = torch.randn((b, unet_out.in_channels, *pipe.sample_hw), device="cuda")
+        wu = unet_out.weight.to(pipe.unet.config.compute_dtype).float()
+        f32 = [(m, torch.randn((b, *shape), device="cuda")) for where, m, shape, dtype in every
+               if dtype == torch.float32 and where == "decode"]
+        with torch.inference_mode(), batch_invariant.window():
+            t_unet = cuda_time_ms(lambda: F.conv2d(xu, wu, unet_out.bias.float(), padding=1), 5)
+            t_decode = sum(cuda_time_ms(lambda m=m, x=x: m(x), 2) for m, x in f32)
+        batch_ms = STEPS * (sums["unet"][1] + t_unet) + sums["decode"][1] + t_decode
+        out[b]["f32"] = {"unet_conv_out": t_unet, "decode": t_decode, "share_of_convs": (STEPS * t_unet + t_decode)
+                         / batch_ms}
+        print(f"[conv] the f32 convolutions on PyTorch's per-row path in the window at batch {b} (events): the UNet's "
+              f"conv_out {t_unet:.4f} ms a step, the VAE's {len(f32)} (post_quant_conv, conv_out) {t_decode:.4f} ms a "
+              f"decode: {100 * out[b]['f32']['share_of_convs']:.1f}% of a {STEPS}-step batch's convolution time "
+              f"({batch_ms:.2f} ms, the bf16 ones replayed)  [{card}]")
+    torch.cuda.empty_cache()
+    return out
+
+
 TIER_PROBES = (SERVE_TIER, 32)  # [tier]: the batches a row alone is held against
 TIER_TIMING_REPS = 5  # [tier]: timed forwards per batch, eager and replayed
+TIER_DECODE_REPS = 2  # [tier]: timed VAE decodes per batch
 
 
 def phase_tier(pipe, card: str) -> dict:
@@ -1081,10 +1217,17 @@ def phase_tier(pipe, card: str) -> dict:
     module of one UNet forward and of one VAE decode whose row 0 differs
     (tier_layers), the end-to-end drift after STEPS DDIM steps and the decode;
     and per setting and dtype the UNet forward's time at batch 1, 8 and 32
-    (CUDA events around eager calls, and replayed from a CUDA graph). Inside
-    the window the uint8 spectrograms must not drift in either dtype."""
+    (CUDA events around eager calls, and replayed from a CUDA graph), in bf16
+    the VAE decode's at 8 and 32 (events), and inside the window both again
+    with the convolutions as they ran there before the convolution kernel
+    (the casts and PyTorch's per-row convolution). Inside the window the
+    uint8 spectrograms must not drift in either dtype."""
+    from unittest import mock
+
     import torch
 
+    from audio_diffusion_torch.models import unet2d
+    from audio_diffusion_torch.ops import batch_invariant_conv2d as bic
     from audio_diffusion_torch.utils import batch_invariant
 
     saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark, torch.backends.cudnn.enabled)
@@ -1100,8 +1243,15 @@ def phase_tier(pipe, card: str) -> dict:
                         graph_time_ms(lambda: unet(x[:b], t), TIER_TIMING_REPS))
                     for b in (1, SERVE_TIER, 32)}
 
+    def decode_ms(vae):
+        with torch.inference_mode():
+            return {b: cuda_time_ms(lambda: vae.decode(x[:b]), TIER_DECODE_REPS) for b in (SERVE_TIER, 32)}
+
     def times(ms):
         return ", ".join(f"{b}: {e:.4f} / {g:.4f}" for b, (e, g) in ms.items())
+
+    def decode_times(ms):
+        return ", ".join(f"{b}: {e:.4f}" for b, e in ms.items())
 
     out = {}
     try:
@@ -1121,6 +1271,18 @@ def phase_tier(pipe, card: str) -> dict:
                                         "drift": {k: v for k, v in drift.items() if k.startswith(dtype)}}
                     print(f"[tier] {name}, {dtype} (eager; cudnn.enabled {enabled}, benchmark False, deterministic "
                           f"{det}, TF32 off; UNet forward ms, events / graph, at batch {times(fwd_ms)})  [{card}]")
+                    if dtype == "bf16":
+                        out[name, dtype]["decode_ms"] = decode_ms(vae)
+                        print(f"[tier]   {dtype} VAE decode ms (events) at batch "
+                              f"{decode_times(out[name, dtype]['decode_ms'])}  [{card}]")
+                    if window and dtype == "bf16":  # the window before the convolution kernel, for its yardstick
+                        with mock.patch.object(unet2d, "batch_invariant_conv2d", bic.conv2d_plain):
+                            out[name, dtype]["fwd_ms_old"] = forward_ms(unet)
+                            out[name, dtype]["decode_ms_old"] = decode_ms(vae)
+                        print(f"[tier]   {dtype} with the old cuDNN-off convolutions (the casts and PyTorch's per-row "
+                              f"convolution, as Conv2d ran them in the window before the kernel): UNet forward ms, "
+                              f"events / graph, at batch {times(out[name, dtype]['fwd_ms_old'])}; VAE decode ms at "
+                              f"batch {decode_times(out[name, dtype]['decode_ms_old'])}  [{card}]")
                     if window:  # the port before its f32 repair, for the cost of the row blocks
                         with without_row_blocks():
                             out[name, dtype]["fwd_ms_one_call"] = forward_ms(unet)
@@ -1146,9 +1308,29 @@ def phase_tier(pipe, card: str) -> dict:
                     fail(f"[tier] inside the batcher's window a row's uint8 spectrogram depends on its batch: {moved}")
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark, torch.backends.cudnn.enabled = saved
+    win, on = out["batcher window", "bf16"], out["default", "bf16"]
+    three = "; ".join(
+        f"{b}: forward kernel {win['fwd_ms'][b][1]:.4f}, cuDNN on {on['fwd_ms'][b][1]:.4f}, old cuDNN-off "
+        f"{win['fwd_ms_old'][b][1]:.4f}; decode kernel {win['decode_ms'][b]:.4f}, cuDNN on {on['decode_ms'][b]:.4f}, "
+        f"old cuDNN-off {win['decode_ms_old'][b]:.4f}" for b in (SERVE_TIER, 32))
+    print(f"[tier] bf16 three ways (UNet forward ms replayed from a graph; VAE decode ms, events), at batch {three}  "
+          f"[{card}]")
     print(f"[tier] ok: inside the batcher's window row 0's uint8 spectrogram is the same alone and in batches "
           f"{TIER_PROBES}, in bf16 and in f32  [{card}]")
     return out
+
+
+def served_conv_launches(pipe, denoise_steps: int, encodes: bool) -> int:
+    """The convolution kernel's launches in one served batch of a bf16
+    pipeline: every Conv2d of the UNet once per denoise step, of the VAE's
+    decoder once, and of its encoder once when the batch encodes input audio
+    (the f32 output convolutions are plain nn.Conv2d and stay off it)."""
+    from audio_diffusion_torch.models.unet2d import Conv2d
+
+    def count(module):
+        return sum(isinstance(m, Conv2d) for m in module.modules())
+
+    return denoise_steps * count(pipe.unet) + count(pipe.vqvae.decoder) + (count(pipe.vqvae.encoder) if encodes else 0)
 
 
 def phase_serve(pipe, card: str, save_dir: Path):
@@ -1166,6 +1348,7 @@ def phase_serve(pipe, card: str, save_dir: Path):
     import torch
 
     from audio_diffusion_torch.ops import attention as at
+    from audio_diffusion_torch.ops import batch_invariant_conv2d as bic
     from audio_diffusion_torch.ops import fused_groupnorm as gn
     from audio_diffusion_torch.serving import make_server
 
@@ -1205,7 +1388,7 @@ def phase_serve(pipe, card: str, save_dir: Path):
     n_frames = (mel.x_res - 1) * mel.hop_length
     server.start()
     host, port = server.address[:2]
-    counters = (gn.group_norm_silu, at.flash_mha)
+    counters = (gn.group_norm_silu, at.flash_mha, bic.batch_invariant_conv2d)
     try:
         bodies = ([{"seed": 100 + i} for i in range(SERVE_REQUESTS["generate"])]
                   + [{"seed": 200 + i, "start_step": SERVE_START_STEP, "audio_pcm16_base64": clip_b64}
@@ -1220,15 +1403,19 @@ def phase_serve(pipe, card: str, save_dir: Path):
         launches = {c.__name__: c.launches for c in counters}
         batches = list(server.batcher.stats)[n_stats:]
         denoise_steps = sum(s["steps"] for s in batches)
-        want = {"group_norm_silu": 64 * denoise_steps, "flash_mha": 6 * denoise_steps}
-        if launches != want:
+        convs = [served_conv_launches(served, s["steps"], s["steps"] == STEPS - SERVE_START_STEP) for s in batches]
+        want = {"group_norm_silu": 64 * denoise_steps, "flash_mha": 6 * denoise_steps,
+                "batch_invariant_conv2d": sum(convs)}
+        if launches != want:  # a bf16 convolution of a served batch that bypassed the kernel shows here
             fail(f"[serve] launches {launches} over {len(batches)} batches of {denoise_steps} denoise steps in all; "
-                 f"expected {want}")
+                 f"expected {want} (convolution kernel per batch {convs})")
         _check_wavs(bodies, responses, mel, "[serve]")
         print(f"[serve] {len(bodies)} concurrent requests over HTTP ({SERVE_REQUESTS}) in {wall:.4f} s: "
               f"{len(bodies) / wall:.4f} requests/s; {len(batches)} batches (n/tier/denoise steps "
               f"{[(s['n'], s['tier'], s['steps']) for s in batches]}); launches {launches} = 64 and 6 per denoise "
-              f"step of every batch; all 200 with {n_frames}-frame wavs  [{card}]")
+              f"step of every batch, the convolution kernel {convs} a batch (once per bf16 convolution of each UNet "
+              f"forward, the VAE decode and, for audio-to-audio, the encode); all 200 with {n_frames}-frame wavs  "
+              f"[{card}]")
 
         # The same seed as wav and as json, each alone: the same int16 samples.
         _, _, wav_data = _concurrently(host, port, [{"seed": 7}])[0]
@@ -1259,6 +1446,7 @@ def phase_serve(pipe, card: str, save_dir: Path):
         print(f"[serve] ok: wav and json PCM identical; seed 1000 bitwise the same spectrogram with other companions "
               f"at tier {SERVE_TIER} (eta 0) and tier 4 (eta {SERVE_ETA}), and alone at tier 1 (eta 0) as at tier "
               f"{SERVE_TIER}; every batch a replay of a program warmup captured, none captured after it  [{card}]")
+        phase_conv(served, card)
         phase_tier(served, card)
 
         noise_ms = step_noise_ms(32, served.sample_hw)
@@ -1301,6 +1489,7 @@ def phase_serve_f32(pipe, card: str) -> None:
 
     from audio_diffusion_torch.models.unet2d import ROW_BLOCK
     from audio_diffusion_torch.ops import attention as at
+    from audio_diffusion_torch.ops import batch_invariant_conv2d as bic
     from audio_diffusion_torch.ops import fused_groupnorm as gn
     from audio_diffusion_torch.serving import make_server
 
@@ -1840,8 +2029,9 @@ def phase_bench(pipe, card: str, serve_dir: Path, main_walls) -> dict:
                     and fid["fused_staged_audio_lsb"] <= bench.AUDIO_LSB_BOUND):
                 fail(f"[bench] {what}: a window or a gate out of bounds: reps {line['reps']}, fidelity {fid}")
             per = line["launches"]["per_request"]
-            if per != {"group_norm_silu": 64.0 * STEPS, "flash_mha": 6.0 * STEPS}:
-                fail(f"[bench] {what}: launches per request {per}, expected {64 * STEPS} and {6 * STEPS}")
+            if per != {"group_norm_silu": 64.0 * STEPS, "flash_mha": 6.0 * STEPS, "batch_invariant_conv2d": 0.0}:
+                fail(f"[bench] {what}: launches per request {per}, expected {64 * STEPS} and {6 * STEPS}, and no "
+                     f"convolution kernel outside the batcher's window")
         elif name == "stage_ledger":
             if set(line["ms_per_batch"]) != set(BENCH_LEDGER_KEYS):
                 fail(f"[bench] {what}: stages {sorted(line['ms_per_batch'])}, expected {sorted(BENCH_LEDGER_KEYS)}")
@@ -2135,6 +2325,7 @@ def phase_cond_serve(pipe, encodings, card: str):
     import torch
 
     from audio_diffusion_torch.ops import attention as at
+    from audio_diffusion_torch.ops import batch_invariant_conv2d as bic
     from audio_diffusion_torch.ops import fused_groupnorm as gn
     from audio_diffusion_torch.serving import make_server
 
@@ -2156,7 +2347,7 @@ def phase_cond_serve(pipe, encodings, card: str):
     t_warm = time.perf_counter() - t0
     rows = [encodings[i].tolist() for i in range(ENCODER_CLIPS)]
     server.start()
-    counters = (gn.group_norm_silu, at.flash_mha)
+    counters = (gn.group_norm_silu, at.flash_mha, bic.batch_invariant_conv2d)
     try:
         bodies = [{"seed": 400 + i, "encoding": [rows[i]]} for i in range(COND_SERVE_TIER)]
         n_stats = len(server.batcher.stats)
@@ -2169,8 +2360,11 @@ def phase_cond_serve(pipe, encodings, card: str):
         batches = [(s["n"], s["tier"], s["steps"]) for s in list(server.batcher.stats)[n_stats:]]
         if batches != [(COND_SERVE_TIER, COND_SERVE_TIER, STEPS)]:
             fail(f"[cond-serve] the {COND_SERVE_TIER} encoded requests ran as batches {batches}")
-        if launches != {"group_norm_silu": COND_NORMS * STEPS, "flash_mha": 0}:
-            fail(f"[cond-serve] launches {launches}, expected {COND_NORMS} GroupNorm+SiLU per denoise step, no attention")
+        want = {"group_norm_silu": COND_NORMS * STEPS, "flash_mha": 0,
+                "batch_invariant_conv2d": served_conv_launches(served, STEPS, False)}
+        if launches != want:
+            fail(f"[cond-serve] launches {launches}, expected {want}: {COND_NORMS} GroupNorm+SiLU per denoise step, "
+                 f"no attention, the convolution kernel once per bf16 convolution of the batch")
         n_frames = _check_wavs(bodies, responses, served.mel, "[cond-serve]")
         first = _one_batch_images(server, [{"seed": 1000 + i, "encoding": [rows[i]]} for i in range(4)], 4,
                                   "[cond-serve]")
@@ -4142,7 +4336,10 @@ def main(argv=None) -> int:
         release_device_memory("the latent-256 pipeline's groups")
         print(f"[time] the latent-256 pipeline's groups done at {time.perf_counter() - t_start:.1f} s")
     if "tier" in only and "main" not in only:
-        phase_tier(build_pipeline(), card)
+        tier_pipe = build_pipeline()
+        phase_conv(tier_pipe, card)
+        phase_tier(tier_pipe, card)
+        del tier_pipe
         torch.cuda.empty_cache()
     if "bench" in only and "main" not in only:
         import tempfile

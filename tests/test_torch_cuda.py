@@ -10,6 +10,7 @@ import contextlib
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from audio_diffusion_torch.ops import attention as at
 from audio_diffusion_torch.ops import fused_groupnorm as gn
@@ -44,14 +45,20 @@ def _assert_close_to_plain(y, x, w, b, groups, eps=1e-5):
     """f32 within 1e-5 * max|y|; bf16 within one bf16 ulp of the f32 result
     (plus that f32 tolerance for values near 0)."""
     ref = gn.group_norm_silu_plain(x.float(), w, b, groups, eps)
+    if y.dtype == torch.float32:
+        assert (y - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    else:
+        _assert_within_a_bf16_ulp(y, ref)
+
+
+def _assert_within_a_bf16_ulp(y, ref):
+    """bf16 y within one bf16 ulp of the f32 ref, plus 1e-5 * max|ref| for
+    values near 0."""
     d = (y.float() - ref).abs()
     tol = 1e-5 * ref.abs().max().item()
-    if y.dtype == torch.float32:
-        assert d.max().item() <= tol
-    else:
-        _, e = torch.frexp(ref.abs().clamp(min=torch.finfo(torch.float32).tiny))
-        ulp = torch.ldexp(torch.ones_like(ref), e - 8)  # bf16 keeps 8 significant bits
-        assert (d / (ulp + tol)).max().item() <= 1.0
+    _, e = torch.frexp(ref.abs().clamp(min=torch.finfo(torch.float32).tiny))
+    ulp = torch.ldexp(torch.ones_like(ref), e - 8)  # bf16 keeps 8 significant bits
+    assert (d / (ulp + tol)).max().item() <= 1.0
 
 
 def test_cpu_tensors_take_the_plain_version_and_never_count():
@@ -641,7 +648,8 @@ def test_graph_replay_is_bitwise_the_eager_request(eta):
     (eager_raw, eager_audio), eager_launches = run(False)
     (raw, audio), launches = run(True)
     assert torch.equal(raw, eager_raw) and torch.equal(audio, eager_audio)
-    assert launches == eager_launches == tuple(prog.launches[0]) and eager_launches[0] > 0 and eager_launches[1] > 0
+    assert launches == eager_launches and eager_launches[0] > 0 and eager_launches[1] > 0
+    assert tuple(prog.launches[0]) == (*eager_launches, 0)  # outside the batcher's window: no convolution kernel
 
 
 @pytest.fixture
@@ -1113,7 +1121,8 @@ def test_bench_quick_on_the_card_launches_both_kernels_and_passes_its_gates():
     assert out["device"]["count"] == torch.cuda.device_count() and out["value"] > 0
     modules = list(UNet2D(UNetConfig(**bench.QUICK_UNET)).modules())
     per_forward = {"group_norm_silu": 2 * sum(isinstance(m, ResnetBlock2D) for m in modules),
-                   "flash_mha": sum(isinstance(m, SelfAttention2D) for m in modules)}
+                   "flash_mha": sum(isinstance(m, SelfAttention2D) for m in modules),
+                   "batch_invariant_conv2d": 0}  # outside the batcher's window
     assert out["launches"]["requests"] == 4
     assert out["launches"]["per_request"] == {k: float(v * steps) for k, v in per_forward.items()}
     assert out["setup"]["capture_s"] > 0 and out["setup"]["pool_bytes"] >= 0
@@ -1221,3 +1230,123 @@ def test_conditional_unet_step_and_its_attention_repeat_themselves_bitwise():
         runs.append(torch.autograd.grad(at.SDPA.apply(*leaves), leaves, grad))
     assert all(torch.equal(a, b) for a, b in zip(*runs))
     assert not torch.are_deterministic_algorithms_enabled()
+
+
+# ------------------------------------------------------------- batch-invariant convolution
+
+def _bf16_conv_layers(config):
+    """The distinct bf16 convolutions of a served batch of ``config``: (row shape, weight shape, stride, padding)."""
+    from test_torch_conv2d import conv_layers
+
+    return sorted({(x[1:], w, s, p) for x, w, s, p, dtype, _ in conv_layers(config, 2) if dtype == torch.bfloat16})
+
+
+def _conv_operands(rows, shape, w_shape, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((rows, *shape), generator=g, device="cuda").bfloat16()
+    w = torch.randn(w_shape, generator=g, device="cuda") * (w_shape[1] * w_shape[2] * w_shape[3]) ** -0.5
+    return x, w, torch.randn(w_shape[0], generator=g, device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", ["latent-256", "cond-latent-512"])
+def test_batch_invariant_conv2d_matches_an_f32_conv_over_the_rounded_operands(config):
+    """Every bf16 convolution shape of the configuration's UNet, VAE decoder
+    and encoder at batch 2 against F.conv2d in f32 (TF32 off) over the same
+    bf16-rounded input, weight and bias, within one bf16 ulp (the output is
+    rounded once; the kernel's f32 sums run in another order); one launch a
+    call."""
+    _cuda()
+    from audio_diffusion_torch.ops import batch_invariant_conv2d as bic
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            for shape, w_shape, stride, padding in _bf16_conv_layers(config):
+                x, w, b = _conv_operands(2, shape, w_shape)
+                before = bic.batch_invariant_conv2d.launches
+                y = bic.batch_invariant_conv2d(x, w, b, stride, padding)
+                assert bic.batch_invariant_conv2d.launches == before + 1
+                ref = F.conv2d(x.float(), w.bfloat16().float(), b.bfloat16().float(), stride, padding)
+                assert y.dtype == torch.bfloat16 and y.shape == ref.shape and y.is_contiguous()
+                _assert_within_a_bf16_ulp(y, ref)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", ["latent-256", "cond-latent-512"])
+def test_batch_invariant_conv2d_rows_do_not_depend_on_the_batch(config):
+    """Every bf16 convolution shape of the configuration (stride 2, the 1x1
+    kernels and the 4x4, 2x2 and 1x1 levels among them): each batch of 1, 2,
+    4, 8, 16 and 32 rows gives its rows the bits they have in the batch of 32
+    (8 for the largest VAE levels), and the last row alone gives its bits
+    there too."""
+    _cuda()
+    from audio_diffusion_torch.ops import batch_invariant_conv2d as bic
+
+    with torch.inference_mode():
+        for shape, w_shape, stride, padding in _bf16_conv_layers(config):
+            n = 32 if np.prod(shape) <= 1 << 23 else 8
+            x, w, b = _conv_operands(n, shape, w_shape)
+            full = bic.batch_invariant_conv2d(x, w, b, stride, padding)
+            for rows in (1, 2, 4, 8, 16, 32):
+                if rows <= n:
+                    assert torch.equal(bic.batch_invariant_conv2d(x[:rows], w, b, stride, padding), full[:rows]), \
+                        (shape, w_shape, stride, rows)
+            assert torch.equal(bic.batch_invariant_conv2d(x[n - 1:], w, b, stride, padding), full[n - 1:])
+
+
+def _full_width_bf16_pipeline():
+    """The latent-256 pipeline at full width in bf16 with the GroupNorm
+    kernel, seeded random weights (the served model of the benchmark)."""
+    from audio_diffusion_torch.mel import Mel
+    from audio_diffusion_torch.models import AutoencoderKL, UNet2D, VAEConfig, unconditional_config
+    from audio_diffusion_torch.pipelines import AudioDiffusionPipeline
+    from audio_diffusion_torch.schedulers import DDIMScheduler
+
+    vae = AutoencoderKL(VAEConfig(sample_size=256, dtype="bfloat16")).init_params(torch.Generator().manual_seed(1))
+    unet = UNet2D(unconditional_config(sample_size=(32, 32), dtype="bfloat16", fused_groupnorm=True)).init_params(
+        torch.Generator().manual_seed(0))
+    return AudioDiffusionPipeline(unet, Mel(x_res=256, y_res=256, hop_length=512, device="cuda"), DDIMScheduler(),
+                                  vae, device="cuda")
+
+
+@pytest.mark.cuda
+def test_bf16_served_request_is_bitwise_the_same_at_tiers_1_8_and_32_through_the_conv_kernel():
+    """The serving contract in bf16 through DynamicBatcher, 50 DDIM steps at
+    eta 0: seed 7 alone (tier 1), among 7 others (tier 8) and among 31 others
+    (tier 32) gives one uint8 spectrogram. Every batch launches the
+    convolution kernel once per bf16 convolution of each UNet forward and of
+    the VAE decode (graph replays credit the counter); a call outside the
+    window launches it never."""
+    _cuda()
+    from audio_diffusion_torch.models.unet2d import Conv2d
+    from audio_diffusion_torch.ops import batch_invariant_conv2d as bic
+    from audio_diffusion_torch.serving import DynamicBatcher
+
+    pipe = _full_width_bf16_pipeline()
+    per_batch = 50 * sum(isinstance(m, Conv2d) for m in pipe.unet.modules()) + sum(
+        isinstance(m, Conv2d) for m in pipe.vqvae.decoder.modules())
+    before = bic.batch_invariant_conv2d.launches
+    pipe(batch_size=2, steps=2, generator=torch.Generator(device="cuda").manual_seed(0))
+    assert bic.batch_invariant_conv2d.launches == before
+    batcher = DynamicBatcher(pipe, max_batch=32, max_wait_ms=3000, steps=50)
+    try:
+        batcher.warmup()
+        before = bic.batch_invariant_conv2d.launches
+        solo = batcher.submit(seed=7).result(timeout=600)
+        futs = [batcher.submit(seed=s) for s in (7, *range(100, 107))]
+        eight = [f.result(timeout=600) for f in futs]
+        futs = [batcher.submit(seed=s) for s in (7, *range(200, 231))]
+        thirty_two = [f.result(timeout=600) for f in futs]
+        launches = bic.batch_invariant_conv2d.launches - before
+    finally:
+        batcher.close()
+    assert [(s["n"], s["tier"]) for s in batcher.stats][-3:] == [(1, 1), (8, 8), (32, 32)]
+    assert launches == 3 * per_batch
+    assert solo.image.shape == (256, 256) and solo.image.std() > 0
+    np.testing.assert_array_equal(solo.image, eight[0].image)
+    np.testing.assert_array_equal(solo.image, thirty_two[0].image)
+    assert not np.array_equal(eight[0].image, eight[1].image)
