@@ -2,15 +2,17 @@
 (``--trace 1``), the check against the reference, and the result line.
 
 Everything a cell is made of is found by name: the workload in
-``BENCHMARK.json``, its configuration in ``benchmark/configs/<config>.json``,
-its traffic mix in ``benchmark/traffic/<traffic>.json``, the loop that drives
-the mix in ``benchmark/modes/<mode>.py`` (the mix's ``mode``: a module with
+``BENCHMARK.json``, its configuration in ``benchmark/configs/<config>.json``
+and the configuration's model family in ``benchmark/families/<family>.py``
+(``core/named.py::family``: the program, its inputs and one request's call,
+the reference, the counts), its traffic mix in
+``benchmark/traffic/<traffic>.json``, the loop that drives the mix in
+``benchmark/modes/<mode>.py`` (the mix's ``mode``: a module with
 ``run(cell, seed, seconds, trace, device, t_start, out)``, which fills ``out``,
 and ``control_rows(cell, seed, device)``), its limits in
 ``benchmark/limits/<workload>.json`` and each per-layer metric's reader in
 ``benchmark/layer_metrics/<metric>.py`` (a module with ``read(ctx)``, which
-returns a number or None when it finds nothing to read, and optionally
-``NEEDS``, the extra measurements it reads).
+returns a number or None when it finds nothing to read).
 """
 
 from __future__ import annotations

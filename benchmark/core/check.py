@@ -4,10 +4,12 @@ Generation and serving are judged the same way, on a sample of the window's
 requests drawn from the seed, once the window has closed and the program's
 state is freed:
 
-- ``spec_mae``: the spectrograms. The reference runs the whole request from
-  the same noise (and encodings) in float32 with TF32 off: 50 DDIM steps of
-  its UNet, its VAE decode, uint8. The number is the worst sampled row's mean
-  absolute difference from the program's uint8 spectrogram, in uint8 levels.
+- ``spec_mae``: the spectrograms. The reference of the configuration's model
+  family (``families/<family>.py::reference_images``) runs the whole request
+  from the same inputs in float32 with TF32 off (in ``audio_diffusion``: 50
+  DDIM steps of its UNet, its VAE decode, uint8). The number is the worst
+  sampled row's mean absolute difference from the program's uint8
+  spectrogram, in uint8 levels.
 - ``audio_rel``: the audio. The reference inverts the PROGRAM's spectrogram
   (NNLS, Griffin-Lim from the same initial phase, int16 PCM), so that this
   stage is judged alone, the stage before it being judged by ``spec_mae``.
@@ -24,8 +26,7 @@ import numpy as np
 import torch
 
 from ..reference import pipeline as ref
-from ..reference.models import float32_exact
-from . import build
+from . import named
 
 NUMBERS = ("spec_mae", "audio_rel")
 
@@ -41,25 +42,21 @@ def _rows_metrics(prog_img, prog_pcm, ref_img, ref_pcm) -> dict:
 def judge_rows(cfg: dict, seed: int, steps: int, rows: list, device, precision: str = "float32",
                rows_per_block: int = 8) -> dict:
     """Per-row numbers of ``rows``: dicts with the program's ``image`` (H, W) uint8 and ``audio`` int16 as
-    numpy, and the request's ``noise`` (h, w, c), ``gl_phase`` and ``encoding`` (or None) as tensors.
-    ``precision`` "fp8" puts the reference in the program's place (the control): its float8 spectrograms,
-    and their audio from a bfloat16 mel inversion (the step below the program's float32 audio stage), are
-    judged instead of the rows' outputs; "fp8-unet" does so with the UNet alone in float8 (a reading of what
-    the UNet's share of the control is, not a control)."""
-    with float32_exact():
-        unet, vae = build.reference_models(cfg, seed, device)
-        noise = torch.stack([r["noise"] for r in rows]).to(device)
-        ctx = torch.stack([r["encoding"] for r in rows]).to(device) if rows[0].get("encoding") is not None else None
+    numpy, the request's ``gl_phase`` and the rest of its per-row inputs (the family's: ``noise`` and, for a
+    conditional configuration, ``encoding``) as tensors. The reference's spectrograms come from the
+    configuration's family (``reference_images``). ``precision`` "fp8" puts the reference in the program's place
+    (the control): its float8 spectrograms, and their audio from a bfloat16 mel inversion (the step below the
+    program's float32 audio stage), are judged instead of the rows' outputs; "fp8-unet" does so with the UNet
+    alone in float8 (a reading of what the UNet's share of the control is, not a control)."""
+    fam = named.family(cfg)
+    with ref.float32_exact():
+        ref_img = fam.reference_images(cfg, seed, steps, rows, device, "float32", rows_per_block)
         phase = torch.stack([r["gl_phase"] for r in rows]).to(device)
-        ref_img = ref.generate_images(unet, vae, noise, steps, ctx, rows_per_block)
         if precision == "float32":
             prog_img = torch.as_tensor(np.stack([r["image"] for r in rows])).to(device)
             prog_pcm = torch.as_tensor(np.stack([r["audio"] for r in rows])).to(device)
         else:
-            cu, cv = build.reference_models(cfg if precision == "fp8" else dict(cfg, vae=None), seed, device, "fp8")
-            prog_img = ref.generate_images(cu, vae if cv is None else cv, noise, steps, ctx, rows_per_block)
-            del cu, cv
-        del unet, vae
+            prog_img = fam.reference_images(cfg, seed, steps, rows, device, precision, rows_per_block)
 
         def audio(p):
             return torch.cat([ref.images_to_pcm16(prog_img[i:i + rows_per_block], phase[i:i + rows_per_block],

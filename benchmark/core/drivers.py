@@ -13,7 +13,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from . import traffic
+from . import named, traffic
 from .errors import CellError
 
 
@@ -55,18 +55,13 @@ class ClosedResult:
     outputs: Dict[int, tuple] = field(default_factory=dict)  # request index -> (uint8 images, int16 audio)
 
 
-def closed_request(pipe, cfg: dict, mix: dict, seed: int, i: int):
-    """Request ``i`` of a closed loop through the pipeline's ``__call__``; returns its device outputs."""
-    inp = traffic.closed_inputs(cfg, mix, seed, i, pipe.device)
-    return pipe(noise=inp["noise"], encoding=inp.get("encoding"), gl_phase=inp["gl_phase"], steps=mix["steps"],
-                eta=mix["eta"], return_arrays=True, pcm16=mix["pcm16"])
-
-
 def run_closed(pipe, cfg: dict, mix: dict, seed: int, *, seconds: Optional[float] = None,
                count: Optional[int] = None, first: int = 0, keep: bool = True) -> ClosedResult:
     """Requests back to back, each enqueued before the previous one's outputs are copied to the host, until
-    ``seconds`` have passed (then the last one is finished) or ``count`` requests were sent. The window runs
-    from the first request's call to the last one's outputs on the host."""
+    ``seconds`` have passed (then the last one is finished) or ``count`` requests were sent, each request ``i``
+    the configuration's family's ``call`` on its ``inputs``. The window runs from the first request's call to the
+    last one's outputs on the host."""
+    fam = named.family(cfg)
     copier = HostCopy(pipe.device)
     res = ClosedResult(first, 0, 0, 0.0)
     pending = None
@@ -77,7 +72,7 @@ def run_closed(pipe, cfg: dict, mix: dict, seed: int, *, seconds: Optional[float
             break
         if seconds is not None and i > first and time.perf_counter() - t0 >= seconds:
             break
-        outs = closed_request(pipe, cfg, mix, seed, i)
+        outs = fam.call(pipe, fam.inputs(cfg, mix, seed, i, pipe.device), mix)
         ev = copier.mark()
         if pending is not None:
             host = copier.fetch(pending[1], pending[2])

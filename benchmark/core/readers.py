@@ -4,6 +4,7 @@ roofline over the traced requests."""
 from __future__ import annotations
 
 from ..counts import kernels
+from . import named
 
 
 class ReadError(RuntimeError):
@@ -18,14 +19,15 @@ def idle_pct(ctx):
 
 def roofline_pct(ctx, kernel: str):
     """The least time the card could take for ``kernel``'s calls in the traced requests (from the
-    configuration's shapes) over the profiler's summed device time of those calls. Fails the run where the
-    profiler's launches differ from the count from shapes, or the share passes 105%."""
+    configuration's shapes, as its family counts them: ``kernel_calls``) over the profiler's summed device time
+    of those calls. Fails the run where the profiler's launches differ from the count from shapes, or the share
+    passes 105%."""
     if ctx.trace is None or not getattr(ctx, "traced_requests", 0):
         return None
-    calls, least = kernels.per_forward(kernel, ctx.cfg, ctx.mix["batch"])
+    calls, least, per_request = named.family(ctx.cfg).kernel_calls(kernel, ctx.cfg, ctx.mix)
     if not calls:
         return None
-    forwards = ctx.mix["steps"] * ctx.traced_requests
+    forwards = per_request * ctx.traced_requests
     lo, hi = ctx.trace.window
     ops = [o for o in ctx.trace.device_ops if kernels.KERNELS[kernel].search(o.name) and lo <= o.start < hi]
     if len(ops) != calls * forwards:

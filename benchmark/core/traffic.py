@@ -3,16 +3,14 @@
 the loop that drives it (``benchmark/modes/<mode>.py``).
 
 - ``closed``: one caller sends requests of ``batch`` rows back to back; request
-  ``i`` draws its inputs (noise, the Griffin-Lim phase, encodings) on the
-  device from (seed, i).
+  ``i`` draws its inputs (noise, the Griffin-Lim phase, whatever else the
+  configuration's model family takes) on the device from (seed, i).
 - ``open``: independent users, arriving at the due times of the arrival
   process the mix names (``benchmark/arrivals/<arrivals>.py``); request ``j``
   carries its own seed, drawn from the run's seed.
 """
 
 from __future__ import annotations
-
-import math
 
 import numpy as np
 import torch
@@ -23,20 +21,15 @@ from .weights import derive_seed, generator
 REQUEST_TAG, USER_SEED_TAG = 100, 102
 
 
+def request_generator(device, seed: int, i: int) -> torch.Generator:
+    """The generator closed-loop request ``i``'s inputs are drawn from."""
+    return generator(device, seed, REQUEST_TAG, i)
+
+
 def closed_inputs(cfg: dict, mix: dict, seed: int, i: int, device) -> dict:
-    """The inputs of closed-loop request ``i``: noise (B, h, w, c), gl_phase (B, frames, n_fft // 2 + 1) in
-    radians and, for a conditional configuration, encoding (B, seq, dim)."""
-    b = mix["batch"]
-    u, mel = cfg["unet"], cfg["mel"]
-    h, w = u["sample_size"]
-    g = generator(device, seed, REQUEST_TAG, i)
-    out = {"noise": torch.randn((b, h, w, u.get("in_channels", 1)), generator=g, device=device),
-           "gl_phase": 2.0 * math.pi * torch.rand((b, mel["x_res"], mel["n_fft"] // 2 + 1), generator=g,
-                                                  device=device)}
-    if cfg.get("encoding"):
-        e = cfg["encoding"]
-        out["encoding"] = torch.randn((b, e["seq"], e["dim"]), generator=g, device=device)
-    return out
+    """The inputs of closed-loop request ``i``: the per-row tensors of the configuration's family, batch first
+    (``families/<family>.py::inputs``)."""
+    return named.family(cfg).inputs(cfg, mix, seed, i, device)
 
 
 def open_arrivals(mix: dict, seed: int, seconds: float) -> np.ndarray:

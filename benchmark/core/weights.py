@@ -109,3 +109,13 @@ def vae_state(shapes: Dict[str, tuple], device, seed: int) -> Dict[str, torch.Te
 
 def shapes_of(module: torch.nn.Module) -> Dict[str, tuple]:
     return {k: tuple(v.shape) for k, v in module.state_dict().items()}
+
+
+def filled(make, config, device, state_fn, seed: int) -> torch.nn.Module:
+    """``make(config)`` made on the ``meta`` device, given storage on ``device`` and filled with
+    ``state_fn(shapes, device, seed)``, in eval mode: nothing is initialised on the host and copied."""
+    with torch.device("meta"):
+        module = make(config)
+    module = module.to_empty(device=device)
+    module.load_state_dict(state_fn(shapes_of(module), device, seed), strict=True)
+    return module.eval()

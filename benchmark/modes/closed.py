@@ -1,9 +1,8 @@
-"""The closed loop: one caller sends requests of the mix's ``batch`` rows back to back through the pipeline's
-``__call__`` (``core/drivers.py::run_closed``), each request's inputs drawn on the card from (seed, request).
+"""The closed loop: one caller sends requests of the mix's ``batch`` rows back to back through the configuration's
+family's ``call`` (``core/drivers.py::run_closed``), each request's inputs drawn on the card from (seed, request).
 
 A mix of this mode: ``batch``, ``steps``, ``eta``, ``pcm16``; ``check_requests`` (how many of the window's
-requests are judged), ``trace_requests`` (the traced sub-window) and ``stage_reps`` (replays of each stage
-program for the stage ledger).
+requests are judged) and ``trace_requests`` (the traced sub-window).
 """
 
 import time
@@ -11,32 +10,33 @@ import types
 
 import torch
 
-from benchmark.core import build, drivers, profile, stages, traffic
+from benchmark.core import drivers, named, profile, traffic
 from benchmark.core.cell import free, sample
 from benchmark.core.errors import CellError
 
 
+def _programs(pipe) -> int:
+    """How many programs (captured graphs) the pipeline holds: none for one that captures nothing."""
+    return len(getattr(pipe, "_compiled", ()))
+
+
 def run(cell, seed, seconds, trace, device, t_start, out):
     cfg, mix = cell.cfg, cell.mix
-    pipe = build.program_pipeline(cfg, seed, device)
+    pipe = named.family(cfg).program(cfg, seed, device)
     drivers.run_closed(pipe, cfg, mix, seed, count=1, first=0, keep=False)  # captures the request's graph
     out["setup_s"] = time.perf_counter() - t_start
-    programs = len(pipe._compiled)
+    programs = _programs(pipe)
     res = drivers.run_closed(pipe, cfg, mix, seed, seconds=seconds, first=1)
-    if len(pipe._compiled) != programs:
+    if _programs(pipe) != programs:
         raise CellError("the window made a program: the warm-up missed the timed signature")
     out["memory_peak_bytes"] = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
     out["attempted"], out["failed"] = res.requests, 0
     out["e2e"] = {"samples_per_s": res.rows / res.window_s}
-    ctx = types.SimpleNamespace(cfg=cfg, mix=mix, window=res, trace=None, traced_requests=0, stage_ms=None)
-    if trace:
-        nxt = res.first + res.requests
-        if device.type == "cuda":
-            _, ctx.trace = profile.traced(lambda: drivers.run_closed(
-                pipe, cfg, mix, seed, count=mix["trace_requests"], first=nxt, keep=False))
-            ctx.traced_requests = mix["trace_requests"]
-        if any("stages" in getattr(cell.reader(m["name"]), "NEEDS", ()) for m in cell.per_layer):
-            ctx.stage_ms = stages.stage_ms(pipe, cfg, mix, seed, nxt + mix["trace_requests"], mix["stage_reps"])
+    ctx = types.SimpleNamespace(cfg=cfg, mix=mix, window=res, trace=None, traced_requests=0)
+    if trace and device.type == "cuda":
+        _, ctx.trace = profile.traced(lambda: drivers.run_closed(
+            pipe, cfg, mix, seed, count=mix["trace_requests"], first=res.first + res.requests, keep=False))
+        ctx.traced_requests = mix["trace_requests"]
     out["ctx"] = ctx
     del pipe
     free()
@@ -51,10 +51,9 @@ def run(cell, seed, seconds, trace, device, t_start, out):
 
 
 def request_rows(cfg, mix, seed, i, device) -> list:
-    """The inputs of request ``i``'s rows, as the check takes them: noise, gl_phase and encoding (or None)."""
+    """The inputs of request ``i``'s rows, as the check takes them: the family's per-row tensors."""
     inp = traffic.closed_inputs(cfg, mix, seed, i, device)
-    return [{"noise": inp["noise"][r], "gl_phase": inp["gl_phase"][r],
-             "encoding": inp["encoding"][r] if "encoding" in inp else None} for r in range(mix["batch"])]
+    return [{k: v[r] for k, v in inp.items()} for r in range(mix["batch"])]
 
 
 def control_rows(cell, seed, device) -> list:

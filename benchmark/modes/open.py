@@ -15,8 +15,9 @@ import types
 import numpy as np
 import torch
 
-from benchmark.core import build, drivers, profile, traffic
+from benchmark.core import drivers, named, profile, traffic
 from benchmark.core.cell import free, sample
+from benchmark.core.errors import CellError
 
 
 def served_phase(device, tier: int, row: int, mel: dict) -> torch.Tensor:
@@ -26,18 +27,21 @@ def served_phase(device, tier: int, row: int, mel: dict) -> torch.Tensor:
     return 2.0 * np.pi * torch.rand((tier, mel["x_res"], mel["n_fft"] // 2 + 1), generator=g, device=device)[row]
 
 
-def served_noise(cfg: dict, user_seed: int) -> torch.Tensor:
-    """A served request's noise, from its own seed as the batcher draws it."""
-    h, w = cfg["unet"]["sample_size"]
-    noise = np.random.default_rng(user_seed).standard_normal((h, w, cfg["unet"].get("in_channels", 1)))
-    return torch.from_numpy(noise.astype(np.float32))
+def served_family(cfg: dict):
+    """The configuration's family, which has to say what a served request's inputs are (``served_inputs``)."""
+    fam = named.family(cfg)
+    if not hasattr(fam, "served_inputs"):
+        raise CellError(f"the family {cfg.get('family', named.DEFAULT_FAMILY)!r} has no served_inputs: "
+                        "it cannot be put in an open-loop cell")
+    return fam
 
 
 def run(cell, seed, seconds, trace, device, t_start, out):
     from audio_diffusion_torch.serving.batcher import DynamicBatcher
 
     cfg, mix = cell.cfg, cell.mix
-    pipe = build.program_pipeline(cfg, seed, device)
+    fam = served_family(cfg)
+    pipe = fam.program(cfg, seed, device)
     batcher = DynamicBatcher(pipe, max_batch=mix["max_batch"], max_wait_ms=mix["max_wait_ms"], steps=mix["steps"],
                              eta=mix["eta"], pcm16=mix["pcm16"], batch_policy=mix["batch_policy"])
     try:
@@ -61,7 +65,7 @@ def run(cell, seed, seconds, trace, device, t_start, out):
         out["late"]["traced_tail"] = f"{tail.completed} of {len(tail.due)}"
     # the serving readers take every batch of the window, which the profiler never slows
     out["ctx"] = types.SimpleNamespace(cfg=cfg, mix=mix, window=res, batches=res.batches,
-                                       trace=tracer.trace if tail is not None else None, stage_ms=None)
+                                       trace=tracer.trace if tail is not None else None)
     del pipe, batcher
     free()
     problems = [f"request {j}: {e}" for j, e in sorted(res.errors.items())[:3]]
@@ -84,8 +88,8 @@ def run(cell, seed, seconds, trace, device, t_start, out):
         if j not in place:
             continue
         r = res.results[j]
-        rows.append({"image": r.image, "audio": r.audio, "noise": served_noise(cfg, res.seeds[j]),
-                     "gl_phase": served_phase(device, *place[j], cfg["mel"]), "encoding": None})
+        rows.append(dict(fam.served_inputs(cfg, res.seeds[j]), image=r.image, audio=r.audio,
+                         gl_phase=served_phase(device, *place[j], cfg["mel"])))
     out["rows"] = rows
     out["checked"] = f"{len(rows)} of {res.completed} served requests"
 
@@ -94,6 +98,7 @@ def control_rows(cell, seed, device) -> list:
     """Rows as a run of the cell would check them, without the program's outputs: ``check_requests`` users'
     noise, each at a row of a full largest tier."""
     cfg, mix = cell.cfg, cell.mix
-    return [{"noise": served_noise(cfg, s), "encoding": None,
-             "gl_phase": served_phase(device, mix["max_batch"], r % mix["max_batch"], cfg["mel"])}
+    fam = served_family(cfg)
+    return [dict(fam.served_inputs(cfg, s), gl_phase=served_phase(device, mix["max_batch"], r % mix["max_batch"],
+                                                                  cfg["mel"]))
             for r, s in enumerate(traffic.user_seeds(seed, mix["check_requests"]))]

@@ -31,29 +31,15 @@ import benchmark.run  # noqa: E402,F401  (the run's cache directories and enviro
 
 def attention_zero_rows(cell, seed: int, device) -> list:
     """The mode's control rows with the outputs of the float32 reference whose UNet's attention cores return
-    zeros (its VAE's are kept)."""
+    zeros (its VAE's are kept): the family's ``reference_images`` variant "attention-zero"."""
     import torch
 
-    from benchmark.core import build
-    from benchmark.reference import models
+    from benchmark.core import named
     from benchmark.reference import pipeline as ref
 
     cfg, rows = cell.cfg, cell.mode().control_rows(cell, seed, device)
-    keep = models._attention
-    images = []
-    with torch.no_grad(), models.float32_exact():
-        unet, vae = build.reference_models(cfg, seed, device)
-        for i in range(0, len(rows), 8):
-            block = rows[i:i + 8]
-            noise = torch.stack([r["noise"] for r in block]).to(device)
-            enc = torch.stack([r["encoding"] for r in block]).to(device) if block[0]["encoding"] is not None else None
-            models._attention = lambda arith, q, k, v: torch.zeros(q.shape[:-1] + v.shape[-1:], device=q.device)
-            try:
-                x = ref.denoise(unet, noise, cell.mix["steps"], enc)
-            finally:
-                models._attention = keep
-            images.append(ref.to_uint8(vae(x / ref.LATENT_SCALE)))
-        images = torch.cat(images)
+    with torch.no_grad(), ref.float32_exact():
+        images = named.family(cfg).reference_images(cfg, seed, cell.mix["steps"], rows, device, "attention-zero")
         phase = torch.stack([r["gl_phase"] for r in rows]).to(device)
         pcm = torch.cat([ref.images_to_pcm16(images[i:i + 8], phase[i:i + 8], cfg["mel"])
                          for i in range(0, len(rows), 8)])

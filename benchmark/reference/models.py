@@ -10,7 +10,7 @@ seeded state dict to the program and to this reference.
 
 Every product (convolution, linear layer, both attention products) goes
 through :class:`Arith`. ``Arith("float32")`` is the reference: float32 with
-TF32 off (the caller turns TF32 off, :func:`float32_exact`). ``Arith("fp8")``
+TF32 off (the caller turns TF32 off, ``pipeline.float32_exact``). ``Arith("fp8")``
 is the control of the benchmark's check: the same model with every operand
 of every product rounded to float8 e4m3 under a per-tensor scale, the
 precision step below the configurations' bfloat16.
@@ -18,7 +18,6 @@ precision step below the configurations' bfloat16.
 
 from __future__ import annotations
 
-import contextlib
 import math
 from typing import Optional
 
@@ -27,17 +26,6 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 FP8_MAX = 448.0  # the largest finite float8 e4m3fn value
-
-
-@contextlib.contextmanager
-def float32_exact():
-    """TF32 off for cuBLAS and cuDNN while the reference runs, restored after."""
-    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
 def fp8_round(x: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,10 @@
 """The plain reference of one generation request, in float32 PyTorch and NumPy.
 
-noise -> ``steps`` deterministic DDIM steps (diffusers 0.24 semantics: linear
-betas 1e-4..2e-2 over 1,000 train steps, "leading" spacing, epsilon
-prediction, x0 clipped to [-1, 1], ``set_alpha_to_one``) of the UNet -> the
+noise -> ``steps`` deterministic DDIM steps (diffusers 0.24 semantics, from
+the configuration's ``scheduler``: ``linear`` or ``scaled_linear`` betas,
+"leading" spacing plus ``steps_offset``, epsilon prediction, x0 clipped to
+[-1, 1] where ``clip_sample``, the final alpha 1 or ``alphas_cumprod[0]`` by
+``set_alpha_to_one``) of the UNet -> the
 VAE decode of latents / 0.18215 -> uint8 (half-to-even rounding of
 (x / 2 + 0.5) * 255) -> the mel inversion of the reference's ``Mel``:
 uint8 -> dB -> power, 80 FISTA iterations of non-negative least squares onto
@@ -16,6 +18,7 @@ Independent of the program under test: written from those definitions
 
 from __future__ import annotations
 
+import contextlib
 import math
 from functools import lru_cache
 
@@ -26,31 +29,61 @@ import torch.nn.functional as F
 LATENT_SCALE = 0.18215
 
 
+@contextlib.contextmanager
+def float32_exact():
+    """TF32 off for cuBLAS and cuDNN while the reference runs, restored after."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
 # -------------------------------------------------------------------- DDIM
 
-def ddim_tables(num_train: int = 1000, beta_start: float = 1e-4, beta_end: float = 0.02):
-    betas = np.linspace(beta_start, beta_end, num_train, dtype=np.float64)
-    return np.cumprod(1.0 - betas).astype(np.float32)
+class DDIM:
+    """The deterministic DDIM of a configuration's ``scheduler`` block: its ``alphas_cumprod`` table (float64
+    betas, their cumulative product cast to float32), its timesteps and its final alpha."""
+
+    def __init__(self, sched: dict):
+        if sched.get("prediction_type", "epsilon") != "epsilon":
+            raise ValueError(f"prediction_type {sched['prediction_type']!r}: the reference predicts epsilon")
+        t, b0, b1 = sched["num_train_timesteps"], sched["beta_start"], sched["beta_end"]
+        kind = sched["beta_schedule"]
+        if kind == "linear":
+            betas = np.linspace(b0, b1, t, dtype=np.float64)
+        elif kind == "scaled_linear":
+            betas = np.linspace(b0 ** 0.5, b1 ** 0.5, t, dtype=np.float64) ** 2
+        else:
+            raise ValueError(f"beta_schedule {kind!r}: the reference has linear and scaled_linear")
+        self.num_train = t
+        self.alphas = np.cumprod(1.0 - betas).astype(np.float32)
+        self.final = 1.0 if sched["set_alpha_to_one"] else float(self.alphas[0])
+        self.offset = sched.get("steps_offset", 0)
+        self.clip = sched.get("clip_sample", True)
+
+    def timesteps(self, steps: int) -> np.ndarray:
+        """"leading" spacing: (arange(steps) * (T // steps)).round(), descending, plus ``steps_offset``."""
+        ratio = self.num_train // steps
+        return (np.arange(steps) * ratio).round()[::-1].astype(np.int64) + self.offset
+
+    def step(self, eps: torch.Tensor, t: int, x: torch.Tensor, delta: int) -> torch.Tensor:
+        a_t = float(self.alphas[t])
+        a_prev = float(self.alphas[t - delta]) if t - delta >= 0 else self.final
+        x0 = (x - math.sqrt(1.0 - a_t) * eps) / math.sqrt(a_t)
+        if self.clip:
+            x0 = x0.clamp(-1.0, 1.0)
+        return math.sqrt(a_prev) * x0 + math.sqrt(1.0 - a_prev) * eps
 
 
-def ddim_timesteps(steps: int, num_train: int = 1000) -> np.ndarray:
-    ratio = num_train // steps
-    return (np.arange(steps) * ratio).round()[::-1].astype(np.int64)
-
-
-def ddim_step(eps: torch.Tensor, t: int, x: torch.Tensor, alphas: np.ndarray, delta: int) -> torch.Tensor:
-    a_t = float(alphas[t])
-    a_prev = float(alphas[t - delta]) if t - delta >= 0 else 1.0
-    x0 = ((x - math.sqrt(1.0 - a_t) * eps) / math.sqrt(a_t)).clamp(-1.0, 1.0)
-    return math.sqrt(a_prev) * x0 + math.sqrt(1.0 - a_prev) * eps
-
-
-def denoise(unet, noise: torch.Tensor, steps: int, context=None) -> torch.Tensor:
-    alphas = ddim_tables()
-    delta = 1000 // steps
+def denoise(unet, noise: torch.Tensor, steps: int, sched: dict, context=None) -> torch.Tensor:
+    """``steps`` DDIM steps of ``unet(x, t, context)`` from ``noise``, under the configuration's ``sched``."""
+    ddim = DDIM(sched)
+    delta = ddim.num_train // steps
     x = noise.float()
-    for t in ddim_timesteps(steps):
-        x = ddim_step(unet(x, int(t), context), int(t), x, alphas, delta)
+    for t in ddim.timesteps(steps):
+        x = ddim.step(unet(x, int(t), context), int(t), x, delta)
     return x
 
 
@@ -180,12 +213,13 @@ def images_to_pcm16(images: torch.Tensor, phase: torch.Tensor, mel: dict, precis
 
 
 @torch.no_grad()
-def generate_images(unet, vae, noise, steps: int, context=None, rows_per_block: int = 8) -> torch.Tensor:
+def generate_images(unet, vae, noise, steps: int, sched: dict, context=None, rows_per_block: int = 8
+                    ) -> torch.Tensor:
     """uint8 spectrograms of ``noise`` (B, h, w, c), run ``rows_per_block`` rows at a time so that it fits."""
     out = []
     for i in range(0, noise.shape[0], rows_per_block):
         ctx = None if context is None else context[i:i + rows_per_block]
-        x = denoise(unet, noise[i:i + rows_per_block], steps, ctx)
+        x = denoise(unet, noise[i:i + rows_per_block], steps, sched, ctx)
         if vae is not None:
             x = vae(x / LATENT_SCALE)
         out.append(to_uint8(x))

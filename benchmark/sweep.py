@@ -31,12 +31,12 @@ def main(argv=None):
     import torch
 
     from audio_diffusion_torch.serving.batcher import DynamicBatcher
-    from benchmark.core import build, drivers
+    from benchmark.core import drivers
     from benchmark.core.cell import Cell
 
     cell = Cell(ROOT, args.workload)
     mix = cell.mix
-    pipe = build.program_pipeline(cell.cfg, args.seed, torch.device("cuda:0"))
+    pipe = cell.mode().served_family(cell.cfg).program(cell.cfg, args.seed, torch.device("cuda:0"))
     batcher = DynamicBatcher(pipe, max_batch=mix["max_batch"], max_wait_ms=mix["max_wait_ms"], steps=mix["steps"],
                              eta=mix["eta"], pcm16=mix["pcm16"], batch_policy=mix["batch_policy"])
     try:

@@ -124,8 +124,7 @@ def test_fp8_control_is_not_correct(workload):
     cfg_name, mix_name, over = CELLS[workload]
     cfg, mix = tiny.config(cfg_name), tiny.mix(mix_name, **over)
     inp = traffic.closed_inputs(cfg, dict(mix, batch=8), SEED, 1, "cpu")
-    rows = [{"noise": inp["noise"][r], "gl_phase": inp["gl_phase"][r],
-             "encoding": inp["encoding"][r] if "encoding" in inp else None} for r in range(8)]
+    rows = [{k: v[r] for k, v in inp.items()} for r in range(8)]
     # the cells' own 50 steps: at a test's widths float8's rounding needs them to show
     numbers = check.worst(check.judge_rows(cfg, SEED, 50, rows, torch.device("cpu"), precision="fp8"))
     ok, _ = check.verdict(numbers, limits(workload))

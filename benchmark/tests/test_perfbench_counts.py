@@ -5,15 +5,18 @@ import types
 import pytest
 import torch
 
-from benchmark.core import profile
+from benchmark.core import named, profile
 from benchmark.core.readers import ReadError, roofline_pct
 from benchmark.counts import flops, kernels, peaks
 from benchmark.reference.models import Arith, ResnetBlock, SpatialSelfAttention
 from benchmark.tests import tiny
 
 
+AD = named.load("families", "audio_diffusion")
+
+
 def _count(fn):
-    return flops._count(fn)
+    return flops.count(fn)
 
 
 def test_resnet_block_flops_by_hand():
@@ -39,7 +42,7 @@ def test_latent_256_request_flops():
 
     cfg = json.loads((Path(__file__).resolve().parents[1] / "configs" / "latent-256.json").read_text())
     cfg["unet"]["sample_size"] = [32, 32]
-    assert flops.unet_forward(cfg, 1) * 50 == pytest.approx(12394138828800 / 32, rel=0.01)
+    assert AD.unet_forward(cfg, 1) * 50 == pytest.approx(12394138828800 / 32, rel=0.01)
 
 
 def test_kernel_calls_of_the_latent_256_unet():

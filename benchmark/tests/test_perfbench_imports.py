@@ -1,6 +1,6 @@
 """Nothing the benchmark loads is of the JAX package's world, compared by whole top-level names; the
-reference and the counts import nothing of the program; a run without a card, or without the program,
-prints no result."""
+reference and the counts import nothing of the program; the core and the counts know no model (only the families
+import the models); a run without a card, or without the program, prints no result."""
 
 import ast
 import shutil
@@ -49,6 +49,37 @@ def test_yardstick_imports_nothing_of_the_program(package):
                 [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
             for name in names:
                 assert name.split(".")[0] not in ("audio_diffusion_torch", *C.FORBIDDEN), (path, name)
+
+
+def _imported(path: Path, package=None) -> list:
+    """Every module and imported name of ``path``'s imports, dotted, relative ones resolved inside its package
+    (``package``: the package's parts, where ``path`` lies outside the repo)."""
+    package = package or path.relative_to(ROOT).parent.parts
+    out = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            out += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            base = (node.module or "").split(".") if not node.level else [
+                *package[:len(package) - node.level + 1], *filter(None, (node.module or "").split("."))]
+            out += [".".join(base)] + [".".join([*base, a.name]) for a in node.names]
+    return out
+
+
+@pytest.mark.parametrize("package", ["core", "counts"])
+def test_core_and_counts_know_no_model(package):
+    for path in (ROOT / "benchmark" / package).glob("*.py"):
+        for name in _imported(path):
+            assert name != "benchmark.reference.models" and not name.startswith("audio_diffusion_torch.models"), (
+                path, name)
+
+
+def test_the_import_scan_resolves_relative_imports(tmp_path):
+    assert "benchmark.reference.models" in _imported(ROOT / "benchmark" / "families" / "audio_diffusion.py")
+    probe = tmp_path / "probe.py"
+    probe.write_text("from ..reference import models\nfrom ..reference.models import UNet\nfrom . import named\n")
+    got = _imported(probe, ("benchmark", "core"))
+    assert got.count("benchmark.reference.models") == 2 and "benchmark.core.named" in got
 
 
 def _run(cwd):

@@ -168,3 +168,10 @@ def test_the_log_keeps_more_batches_than_the_batcher():
 def test_a_lost_batch_entry_gives_no_result():
     with pytest.raises(CellError, match="lost"):
         drivers.run_open(FakeBatcher(0.01, keep=2, batches=3), MIX, 7, 1.0)
+
+
+def test_an_open_loop_cell_needs_a_family_that_serves(monkeypatch):
+    mode = named.load("modes", "open")
+    monkeypatch.setattr(named, "family", lambda cfg: types.SimpleNamespace(program=None))
+    with pytest.raises(CellError, match="toy.*served_inputs"):
+        mode.served_family({"family": "toy"})

@@ -101,3 +101,17 @@ def test_named_files_are_found_by_name_alone():
             named.load("modes", bad)
     with pytest.raises(FileNotFoundError):
         named.load("arrivals", "no-such-process")
+
+
+FAMILY_CONTRACT = ("program", "inputs", "call", "reference_images", "flops", "kernel_calls", "tiny")
+
+
+@pytest.mark.parametrize("workload", M["workloads"], ids=lambda w: w["name"])
+def test_every_cell_has_a_whole_family(workload):
+    cfg = json.loads((ROOT / "benchmark" / "configs" / f"{workload['config']}.json").read_text())
+    fam = named.family(cfg)
+    assert fam is named.load("families", cfg.get("family", "audio_diffusion"))
+    assert all(callable(getattr(fam, f, None)) for f in FAMILY_CONTRACT), fam
+    mix = json.loads((ROOT / "benchmark" / "traffic" / f"{workload['traffic']}.json").read_text())
+    if mix["mode"] == "open":
+        assert callable(fam.served_inputs)

@@ -1,8 +1,10 @@
-"""Configurations at a size a CPU test holds: the cells' shapes of blocks, at a few channels and pixels."""
+"""Configurations at a size a CPU test holds: the cells' shapes of blocks, at a few channels and pixels, as each
+configuration's family cuts them (``tiny``)."""
 
-import copy
 import json
 from pathlib import Path
+
+from benchmark.core import named
 
 ROOT = Path(__file__).resolve().parents[2]
 
@@ -12,23 +14,9 @@ def _load(kind, name):
 
 
 def config(name: str, dtype: str = "float32") -> dict:
-    """The configuration ``name`` with its widths and pixels cut to a CPU's size, its block types kept."""
-    cfg = copy.deepcopy(_load("configs", name))
-    u = cfg["unet"]
-    n = len(u["block_out_channels"])
-    u["block_out_channels"] = [16 * (1 + i // 2) for i in range(n)]
-    u["sample_size"] = [2 ** (n - 1), 2 ** (n - 1)]
-    u["norm_num_groups"] = 8
-    u["layers_per_block"] = 1
-    if u.get("cross_attention_dim"):
-        u["cross_attention_dim"] = cfg["encoding"]["dim"] = 12
-    v = cfg["vae"]
-    v["block_out_channels"] = [8, 8]
-    v["norm_num_groups"] = 4
-    v["layers_per_block"] = 1
-    v["sample_size"] = 2 * u["sample_size"][0]
-    side = v["sample_size"]
-    cfg["mel"].update(x_res=side, y_res=side, n_fft=128, hop_length=32, n_iter=4)
+    """The configuration ``name`` cut to a CPU's size by its family, computing in ``dtype``."""
+    cfg = _load("configs", name)
+    cfg = named.family(cfg).tiny(cfg)
     cfg["dtype"] = dtype
     return cfg
 
